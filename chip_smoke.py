@@ -4,21 +4,37 @@
 
 Phases, each of which must pass (exit code 1 otherwise):
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the path from the sources in this checkout,
+2. build every CUDA kernel of the port from the sources in this checkout,
    one nvcc per source, all started together;
 3. each kernel against its plain PyTorch twin on the card, at small shapes
-   and at the main path's largest shape (tolerance 1e-4: f32, another
-   summation order; l, a sum of up to N terms, relative);
-4. the main path at full width: the evaluate entry point's default
+   and at the main path's largest shape: the forward (tolerance 1e-4: f32,
+   another summation order; l, a sum of up to N terms, relative) and the
+   dq and dk/dv backward kernels (max |got - want| <= 1e-4 * max(1,
+   max |want|));
+4. the evaluate path at full width: the evaluate entry point's default
    configuration (anchor-based DSNet, attention backbone, F 1024, 8 heads,
    hidden 128, fc depth 7, scales 4 8 16 32) with seeded random weights on
    8 synthetic eccv16-shaped videos, through evaluate_on_device with batch
    size 4; the flash kernel must launch once per eval batch, every F must
    lie in [0, 1], and the dense route (--no-pallas) must give the same
    per-video F and pred_cls within 1e-4;
-5. times in CUDA events after warm-up, beside the card's name and power
-   limit: predict per batch, the whole evaluation, and each kernel against
-   its bound, its twin and the library call that computes the same function.
+5. the differentiable attention path, the one that runs the backward
+   kernels: flash_attention(...).backward(g) at B 4, H 8, N 2304, D 128
+   with per-video lengths against autograd of the dense masked attention
+   (the same 1e-4 limit), one launch of each backward kernel per backward,
+   and bit-identical gradients from two runs;
+6. the training path at full width: trainer.train_records, same
+   configuration, 6 of the synthetic videos to train and 2 to validate,
+   batch size 4, 2 epochs, batches composed per epoch from pools; every
+   step's loss finite, the parameters changed, no forward-kernel launch
+   inside a train step (training keeps the dense attention with dropout)
+   and one per eval batch in each validation, every F in [0, 1], and the
+   best checkpoint, reloaded, reproducing the recorded best F (1e-6: a
+   float32 device mean against a host mean);
+7. times in CUDA events after warm-up, beside the card's name and power
+   limit: predict per batch, the whole evaluation, a train step per bucket
+   and its stages, an epoch, and each kernel against its bound, its twin
+   and the library call that computes the same function.
 
 The last lines are a JSON object describing each kernel, the nvidia-smi
 line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
@@ -31,7 +47,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +57,7 @@ import torch
 TOL = 1e-4
 F32_PEAK_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-KERNEL_SOURCES = ("flash_attention_fwd",)
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 
 
 def nvidia_smi() -> str:
@@ -113,6 +131,277 @@ def check_flash(flash, phases: Phases) -> float:
                          f"{name}")
         print(f"    {'; '.join(errs)}")
     return worst
+
+
+def grad_limit_ok(got: torch.Tensor, want: torch.Tensor) -> Tuple[bool, float]:
+    """max |got - want| <= TOL * max(1, max |want|), and finite."""
+    err = float((got - want).abs().max())
+    ok = (err <= TOL * max(1.0, float(want.abs().max()))
+          and bool(torch.isfinite(got).all()))
+    return ok, err
+
+
+def check_flash_backward(flash, phases: Phases) -> Tuple[float, float]:
+    """dq and dk/dv kernels vs the twins on the forward's four cases;
+    returns the largest abs error of dq and of dk/dv."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    cases = [(4, 192, 64, [150, 150, 100, 100]),
+             (2, 100, 128, [100, 100]),
+             (2, 256, 128, [0, 256]),
+             (32, 2304, 128, [2304] * 32)]
+    for i, (bh, n, d, lens) in enumerate(cases):
+        q, k, v, mask = flash_case(flash, bh, n, d, lens, seed=10 + i)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)
+                        ).cuda()
+        out, m, l = flash.flash_attention_plain(q, k, v, mask)
+        dd = (g * out).sum(-1, keepdim=True)
+        got = (flash.flash_attention_dq(q, k, v, mask, g, m, l, dd),
+               *flash.flash_attention_dkv(q, k, v, mask, g, m, l, dd))
+        torch.cuda.synchronize()
+        want = (flash.flash_attention_dq_plain(q, k, v, mask, g, m, l, dd),
+                *flash.flash_attention_dkv_plain(q, k, v, mask, g, m, l, dd))
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            ok, err = grad_limit_ok(a, w)
+            key = "dq" if name == "dq" else "dkv"
+            worst[key] = max(worst[key], err)
+            errs.append(f"{name} abs {err:.3e} (max |want| "
+                        f"{float(w.abs().max()):.3e})")
+            phases.check(ok, f"flash backward ({bh}, {n}, {d}) lens "
+                             f"{sorted(set(lens))} {name}")
+        print(f"    {'; '.join(errs)}")
+    return worst["dq"], worst["dkv"]
+
+
+def dense_attention(q, k, v, mask):
+    """Dense masked attention, [B, H, N, D] with a [B, N] bool key mask."""
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k) / q.shape[-1] ** 0.5
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    return torch.softmax(s, dim=-1) @ v
+
+
+def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
+    """The differentiable attention path at full width; returns the launch
+    counts of its counted run (one forward and one backward)."""
+    b, h, n, d = 4, 8, 2304, 128
+    gen = torch.Generator().manual_seed(21)
+    q, k, v, g = (torch.randn(b, h, n, d, generator=gen).cuda()
+                  for _ in range(4))
+    lens = torch.tensor([2304, 2000, 1500, 700])
+    mask = (torch.arange(n)[None, :] < lens[:, None]).cuda()
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, mask).backward(g)
+        return [t.grad for t in leaves]
+
+    kernels = (flash.flash_attention_fwd, flash.flash_attention_dq,
+               flash.flash_attention_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    got = grads(flash.flash_attention)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    again = grads(flash.flash_attention)
+    want = grads(dense_attention)
+    errs = []
+    for name, a, w in zip("qkv", got, want):
+        ok, err = grad_limit_ok(a, w)
+        errs.append(f"d{name} abs {err:.3e}")
+        phases.check(ok, f"flash_attention d{name} vs dense autograd at "
+                         f"({b}, {h}, {n}, {d}), lens {lens.tolist()}")
+    print(f"    {'; '.join(errs)}")
+    phases.check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                 "two backward runs give bit-identical gradients")
+    phases.check(launches == {"flash_attention_fwd": 1,
+                              "flash_attention_dq": 1,
+                              "flash_attention_dkv": 1},
+                 f"launches in one forward + backward: {launches}")
+    return launches
+
+
+def check_training(flash, phases: Phases, train_videos, val_videos,
+                   args) -> Dict[str, int]:
+    """The training path at full width through trainer.train_records;
+    returns the launch counts of that run."""
+    from edsnet_torch import trainer
+    from edsnet_torch.models.common import init_weights
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.parallel.eval_device import evaluate_on_device
+    from edsnet_torch.utils.checkpoint import load_checkpoint
+
+    kernels = (flash.flash_attention_fwd, flash.flash_attention_dq,
+               flash.flash_attention_dkv)
+    steps, evals = [], []
+    real_step, real_eval = trainer.ab_train_step, trainer.eval_fscore_device
+
+    def counted_step(*a, **kw):     # the forward launches inside one step
+        before = flash.flash_attention_fwd.launches
+        metrics = real_step(*a, **kw)
+        steps.append((metrics["loss"],
+                      flash.flash_attention_fwd.launches - before))
+        return metrics
+
+    def counted_eval(model, prepared, nms_thresh):
+        before = flash.flash_attention_fwd.launches
+        val_f = real_eval(model, prepared, nms_thresh)
+        evals.append((flash.flash_attention_fwd.launches - before,
+                      len(prepared)))
+        return val_f
+
+    trainer.ab_train_step, trainer.eval_fscore_device = (counted_step,
+                                                         counted_eval)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            best, f1s, epochs = trainer.train_records(
+                args, train_videos, val_videos, f"{tmp}/best.pt")
+            torch.cuda.synchronize()
+            train_ms = (time.perf_counter() - t0) * 1e3
+            launches = {fn.__name__: fn.launches for fn in kernels}
+
+            fresh = get_model(args.model, **vars(args))
+            init_weights(fresh, torch.Generator().manual_seed(args.seed))
+            fresh = fresh.cuda()
+            init = {k: v.clone() for k, v in fresh.state_dict().items()}
+            load_checkpoint(fresh, f"{tmp}/best.pt")
+            fresh.eval()
+            reloaded_f, _ = evaluate_on_device(
+                fresh, val_videos, args.nms_thresh,
+                batch_size=args.batch_size, bucket_size=args.bucket_size)
+    finally:
+        trainer.ab_train_step, trainer.eval_fscore_device = (real_step,
+                                                             real_eval)
+    losses = torch.stack([loss for loss, _ in steps]).cpu()
+    print(f"  {len(steps)} steps in {args.max_epoch} epochs, "
+          f"{train_ms:.1f} ms in all; losses "
+          f"{[round(float(x), 4) for x in losses]}")
+    print(f"  validation F per epoch {f1s} (epochs {epochs}), best "
+          f"{best:.6f}, reloaded best checkpoint {reloaded_f:.6f}; "
+          f"launches {launches}")
+    phases.check(bool(torch.isfinite(losses).all()) and len(steps) > 0,
+                 "every step's loss is finite")
+    changed = sum(not torch.equal(init[k], v)
+                  for k, v in fresh.state_dict().items())
+    phases.check(changed == len(init),
+                 f"parameters changed ({changed}/{len(init)} tensors)")
+    phases.check(all(n == 0 for _, n in steps),
+                 "no forward-kernel launch inside a train step")
+    phases.check(len(evals) == args.max_epoch
+                 and all(n == b for n, b in evals),
+                 f"forward-kernel launches per validation == eval batches "
+                 f"{evals}")
+    phases.check(launches["flash_attention_fwd"] == sum(b for _, b in evals)
+                 and launches["flash_attention_dq"] == 0
+                 and launches["flash_attention_dkv"] == 0,
+                 f"training path launches {launches}")
+    phases.check(all(0.0 <= f <= 1.0 for f in f1s), "every F in [0, 1]")
+    phases.check(abs(reloaded_f - best) <= 1e-6,
+                 f"reloaded best checkpoint F {reloaded_f:.7f} == recorded "
+                 f"best {best:.7f}")
+    return launches
+
+
+def device_busy_ms(fn) -> Tuple[float, float]:
+    """(wall ms, ms of CUDA kernels) of one call of ``fn``, from a
+    torch.profiler trace; kernels on one stream do not overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall_ms, busy_us / 1e3
+
+
+def time_training(phases: Phases, train_videos, val_videos, args,
+                  smi: str) -> None:
+    """A train step per bucket, its stages at the largest bucket, one epoch
+    of steps with the device's busy share, and one validation, in CUDA
+    events."""
+    from edsnet_torch import trainer
+    from edsnet_torch.data import batching
+    from edsnet_torch.models.common import (init_weights,
+                                            set_dropout_generator)
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.ops import losses as L
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import (eval_fscore_device,
+                                                   prepare_eval_batches)
+
+    model = get_model(args.model, **vars(args))
+    init_weights(model, torch.Generator().manual_seed(args.seed))
+    model = model.cuda()
+    device = next(model.parameters()).device
+    set_dropout_generator(model, torch.Generator(device).manual_seed(1))
+    gen = torch.Generator(device).manual_seed(2)
+    optimizer = steps.make_optimizer(model.parameters(), args.lr,
+                                     args.weight_decay)
+    items = batching.prepare_items(
+        train_videos, args.model, anchor_scales=args.anchor_scales,
+        pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
+        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size)
+    batches = [trainer.to_device(b, device) for b in batching.batch_items(
+        items, args.batch_size, args.bucket_size, shuffle=False)]
+    kw = dict(lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
+              inc_ratio=args.incomplete_sample_ratio)
+    per_bucket = {}
+    for batch in sorted(batches, key=lambda b: b["seq"].shape[1]):
+        per_bucket[int(batch["seq"].shape[1])] = cuda_ms(
+            lambda: steps.ab_train_step(model, optimizer, batch, gen, **kw),
+            iters=5, warmup=2)
+    def epoch():
+        return [steps.ab_train_step(model, optimizer, b, gen, **kw)
+                for b in batches]
+
+    epoch_ms = cuda_ms(epoch, iters=2, warmup=1)
+    wall_ms, busy_ms = device_busy_ms(epoch)
+    prepared = prepare_eval_batches(val_videos, args.batch_size,
+                                    args.bucket_size, device)
+    model.eval()
+    val_ms = cuda_ms(lambda: eval_fscore_device(model, prepared,
+                                                args.nms_thresh),
+                     iters=2, warmup=1)
+
+    batch = max(batches, key=lambda b: b["seq"].shape[1])
+    model.train()
+
+    def forward():
+        label = steps.build_ab_cls_labels(batch, gen, kw["neg_ratio"],
+                                          kw["inc_ratio"])
+        pred_cls, pred_loc = model(batch["seq"], batch["mask"])
+        w = batch["video_valid"].to(torch.float32)
+        return ((L.ab_cls_loss(pred_cls, label) + kw["lambda_reg"]
+                 * L.ab_loc_loss(pred_loc, batch["loc_label"], label))
+                * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    labels_ms = cuda_ms(lambda: steps.build_ab_cls_labels(
+        batch, gen, kw["neg_ratio"], kw["inc_ratio"]), iters=5, warmup=2)
+    fwd_ms = cuda_ms(forward, iters=5, warmup=2)
+    fwd_bwd_ms = cuda_ms(lambda: forward().backward(), iters=5, warmup=2)
+    opt_ms = cuda_ms(optimizer.step, iters=5, warmup=2)
+    sizes = [int(b["video_valid"].sum())
+             for b in sorted(batches, key=lambda b: b["seq"].shape[1])]
+    print(f"  [{smi}] train step ms per bucket (batch sizes {sizes}): "
+          f"{ {k: round(v, 3) for k, v in per_bucket.items()} }; one epoch "
+          f"of {len(batches)} steps {epoch_ms:.3f} ms; validation of "
+          f"{len(val_videos)} videos {val_ms:.1f} ms")
+    busy = (f"{busy_ms:.3f} ms of CUDA kernels in {wall_ms:.3f} ms, busy "
+            f"{100 * busy_ms / wall_ms:.1f} %" if busy_ms > 0 else
+            "device time not measured (the profiler saw no kernels)")
+    print(f"  [{smi}] one epoch of steps under torch.profiler: {busy}")
+    print(f"  [{smi}] train step at bucket {int(batch['seq'].shape[1])}: "
+          f"label sampling {labels_ms:.3f} ms, forward with losses "
+          f"{fwd_ms - labels_ms:.3f} ms, backward {fwd_bwd_ms - fwd_ms:.3f}"
+          f" ms, Adam {opt_ms:.3f} ms (whole step "
+          f"{per_bucket[int(batch['seq'].shape[1])]:.3f} ms)")
+    phases.check(all(t > 0 for t in per_bucket.values()), "train steps timed")
 
 
 def synthetic_records(seed: int, num_feature: int):
@@ -196,8 +485,9 @@ def main() -> int:
 
     print("phase: kernels vs plain twins")
     max_abs_err = check_flash(flash, phases)
+    dq_err, dkv_err = check_flash_backward(flash, phases)
 
-    print("phase: main path at full width")
+    print("phase: evaluate path at full width")
     args = config_lib.get_arguments(["anchor-based", "--seed",
                                      str(opts.seed)])
     device = setup(args)
@@ -280,7 +570,22 @@ def main() -> int:
                                             args.nms_thresh, valid),
                          iters=2, warmup=1)
 
+    print("phase: differentiable attention path (the backward kernels)")
+    bwd_launches = check_flash_autograd(flash, phases)
+
+    print("phase: training path at full width")
+    train_args = config_lib.get_arguments([
+        "anchor-based", "--seed", str(opts.seed), "--batch-size", "4",
+        "--max-epoch", "2"])
+    val_ids = (2, 5)       # one tvsum-keyed and one summe-keyed video
+    train_videos = [r for i, r in enumerate(records) if i not in val_ids]
+    val_videos = [records[i] for i in val_ids]
+    print(f"  train n_seq {[r.seq.shape[0] for r in train_videos]}, "
+          f"validate n_seq {[r.seq.shape[0] for r in val_videos]}")
+    check_training(flash, phases, train_videos, val_videos, train_args)
+
     print("phase: timing")
+    time_training(phases, train_videos, val_videos, train_args, smi)
     q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
     kernel_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, mask))
     plain_ms = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, mask))
@@ -294,6 +599,41 @@ def main() -> int:
     flop_ms = flops / F32_PEAK_FLOPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
+
+    # backward kernels at the same shape: inputs q, k, v, g [N, D] and the
+    # mask, m, l, dd [N] read once; dq, or dk and dv, written once
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
+                    ).cuda()
+    out, m, l = flash.flash_attention_fwd(q, k, v, mask)
+    dd = (g * out).sum(-1, keepdim=True)
+    bwd_args = (q, k, v, mask, g, m, l, dd)
+    lq, lk, lv = (t[None].clone().requires_grad_() for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=attn_mask)
+    bwd = {}
+    for name, n_ops, n_out, kernel, plain, wrt in (
+            ("flash_attention_dq", 6, 1, flash.flash_attention_dq,
+             flash.flash_attention_dq_plain, (lq,)),
+            ("flash_attention_dkv", 8, 2, flash.flash_attention_dkv,
+             flash.flash_attention_dkv_plain, (lk, lv))):
+        ops_ms = n_ops * bh * n * n * d / F32_PEAK_FLOPS * 1e3
+        io_ms = 4.0 * bh * ((4 + n_out) * n * d + 4 * n) \
+            / HBM_BYTES_PER_S * 1e3
+        bwd[name] = {
+            "ms": cuda_ms(lambda: kernel(*bwd_args)),
+            "plain_ms": cuda_ms(lambda: plain(*bwd_args), iters=5),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib_out, wrt, g[None], retain_graph=True)),
+            "bound_ms": max(ops_ms, io_ms),
+            "bound_by": "operations" if ops_ms >= io_ms else "bytes",
+            "tflops": n_ops * bh * n * n * d / 1e9}
+        t = bwd[name]
+        print(f"  [{smi}] {name} (32, 2304, 128): kernel {t['ms']:.4f} ms "
+              f"({t['tflops'] / t['ms']:.2f} TFLOP/s), twin "
+              f"{t['plain_ms']:.4f} ms, autograd.grad through "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms (operations {ops_ms:.4f} ms at 67 "
+              f"TFLOP/s f32, bytes {io_ms:.4f} ms at 3.35 TB/s)")
     print(f"  [{smi}] predict ms per batch "
           f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
           f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); eval of "
@@ -313,14 +653,26 @@ def main() -> int:
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "edsnet_torch/csrc/flash_attention_fwd.cu",
         "replaces": "edsnet_tpu/kernels/flash_attention.py:58",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "library_ms": library_ms}]}))
+        "library_ms": library_ms}]
+    for name, line, err in (("flash_attention_dq", 155, dq_err),
+                            ("flash_attention_dkv", 202, dkv_err)):
+        t = bwd[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "edsnet_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"edsnet_tpu/kernels/flash_attention.py:{line}",
+            "launches": bwd_launches[name], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 Counterpart of edsnet_tpu/data/dataset.py, kept as the port's own copy.
 ``h5py`` and ``yaml`` are imported inside the functions that read an h5
-file or a split, so the package imports without them.  Split keys
+file or read or write a yaml, so the package imports without them.  Split keys
 ``<dir>/<file.h5>/<video>`` resolve against the key's own path, then
 data_root/<relative>, then data_root/<file.h5>.
 """
@@ -121,11 +121,15 @@ class AverageMeter:
             raise AttributeError(attr)
 
 
+def get_ckpt_dir(model_dir: PathLike) -> Path:
+    return Path(model_dir) / "checkpoint"
+
+
 def get_ckpt_path(model_dir: PathLike, split_path: PathLike,
                   split_index: int) -> Path:
     """{model_dir}/checkpoint/{split_file}.{idx}.pt"""
-    return (Path(model_dir) / "checkpoint"
-            / f"{Path(split_path).name}.{split_index}.pt")
+    name = f"{Path(split_path).name}.{split_index}.pt"
+    return get_ckpt_dir(model_dir) / name
 
 
 def load_yaml(path: PathLike) -> Any:
@@ -133,3 +137,10 @@ def load_yaml(path: PathLike) -> Any:
 
     with open(path) as f:
         return yaml.safe_load(f)
+
+
+def dump_yaml(obj: Any, path: PathLike) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.dump(obj, f)

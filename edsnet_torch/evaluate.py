@@ -41,38 +41,62 @@ def resolve_device(name: str) -> torch.device:
                      f"(choose auto, gpu or cpu)")
 
 
-def check_supported(args) -> None:
-    """Raise for flags whose paths this port does not serve yet."""
-    def todo(flag, item):
-        raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
-                                  f"Queue A item {item})")
+def _todo(flag, item):
+    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue "
+                              f"A item {item})")
 
+
+def check_model_supported(args) -> None:
+    """Raise for model and device-layout flags that no CLI of this port
+    serves yet."""
     if args.context_parallel:
-        todo("--context-parallel", 13)
+        _todo("--context-parallel", 13)
     if args.tensor_parallel > 1:
-        todo("--tensor-parallel", 13)
+        _todo("--tensor-parallel", 13)
     if args.num_devices > 1:
-        todo("--num-devices > 1", 13)
-    if args.host_eval:
-        todo("--host-eval", 6)
-    if args.knapsack_audit:
-        todo("--knapsack-audit", 6)
+        _todo("--num-devices > 1", 13)
     if args.untie_fc_blocks:
-        todo("--untie-fc-blocks", 4)
+        _todo("--untie-fc-blocks", 4)
     if args.model != "anchor-based":
-        todo(f"model type {args.model}", 9)
+        _todo(f"model type {args.model}", 9)
     if args.model_depth != "shallow":
-        todo(f"--model-depth {args.model_depth}", 10)
+        _todo(f"--model-depth {args.model_depth}", 10)
     if args.pooling_type != "roi":
-        todo(f"--pooling-type {args.pooling_type}", 10)
+        _todo(f"--pooling-type {args.pooling_type}", 10)
     if args.base_model != "attention":
-        todo(f"--base-model {args.base_model}", "3 / 11")
+        _todo(f"--base-model {args.base_model}", "3 / 11")
 
 
-def setup(args) -> torch.device:
-    """Entry-point setup shared by the CLIs: supported flags, device, f32
-    matmuls."""
-    check_supported(args)
+def check_supported(args) -> None:
+    """Raise for flags whose paths the evaluate CLI does not serve yet."""
+    check_model_supported(args)
+    if args.host_eval:
+        _todo("--host-eval", 6)
+    if args.knapsack_audit:
+        _todo("--knapsack-audit", 6)
+
+
+def check_train_supported(args) -> None:
+    """Raise for flags whose paths the train CLI does not serve yet."""
+    check_model_supported(args)
+    if args.compute_dtype == "bfloat16":
+        _todo("--compute-dtype bfloat16", 4)
+    if args.remat:
+        _todo("--remat", 4)
+    if args.resume:
+        _todo("--resume", 6)
+    if args.state_save_every:
+        _todo("--state-save-every", 6)
+    if args.profile:
+        _todo("--profile", 7)
+    if args.host_eval:
+        _todo("--host-eval", 6)
+
+
+def setup(args, check=check_supported) -> torch.device:
+    """Entry-point setup shared by the CLIs: the CLI's ``check`` of its
+    flags, device, f32 matmuls."""
+    check(args)
     device = resolve_device(args.device)
     # full-f32 products on the card, so results compare with f32 references
     torch.backends.cuda.matmul.allow_tf32 = False

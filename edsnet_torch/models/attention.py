@@ -7,7 +7,8 @@ output in training.  A deterministic pass of N >= ``flash_min_len``
 positions routes through the flash kernel (kernels/flash_attention.py)
 when ``use_flash`` is True (precision "default"), or when it is None (auto)
 and the input lies on a CUDA device (precision "highest").  Training keeps
-the dense path, because its dropout acts on the attention map itself.
+the dense path, because its dropout acts on the attention map itself; the
+flash route is differentiable all the same (kernels/flash_attention.py).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from edsnet_torch.models.common import masked_softmax
+from edsnet_torch.models.common import Dropout, masked_softmax
 
 
 class AttentionExtractor(nn.Module):
@@ -36,8 +37,8 @@ class AttentionExtractor(nn.Module):
         self.K = nn.Linear(num_feature, num_feature, bias=False)
         self.V = nn.Linear(num_feature, num_feature, bias=False)
         self.fc = nn.Linear(num_feature, num_feature, bias=False)
-        self.attn_dropout = nn.Dropout(attn_dropout)
-        self.out_dropout = nn.Dropout(out_dropout)
+        self.attn_dropout = Dropout(attn_dropout)
+        self.out_dropout = Dropout(out_dropout)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Shared model utilities: init scheme, masked primitives, the fc block.
+"""Shared model utilities: init scheme, masked primitives, dropout with an
+explicit generator, the fc block.
 
 Init matches edsnet_tpu/models/common.py (the reference trainer's re-init):
 xavier-uniform with gain sqrt(2) on every Linear weight, constant 0.1 bias,
@@ -48,6 +49,32 @@ def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor] = None
     return x * mask[..., None].to(x.dtype)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout that draws its keep mask from ``self.generator``
+    (the trainer's dropout stream, see ``set_dropout_generator``), or from
+    the global generator while that is None.  Identity in eval mode."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every ``Dropout`` under ``module`` at ``generator``."""
+    for sub in module.modules():
+        if isinstance(sub, Dropout):
+            sub.generator = generator
+
+
 class FcBlock(nn.Module):
     """Linear -> ReLU -> Dropout(0.5) -> LayerNorm (the reference fc_block).
 
@@ -58,7 +85,7 @@ class FcBlock(nn.Module):
                  dropout: float = 0.5):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, num_hidden)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.LayerNorm_0 = nn.LayerNorm(num_hidden, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,43 @@
-"""1-D box IoU and batched greedy NMS.
+"""1-D box algebra, IoU and batched greedy NMS.
 
-Counterpart of edsnet_tpu/ops/bbox.py: ``iou_lr`` keeps the reference's
-convex-hull denominator, and ``nms_masked`` the deterministic tie order
-(stable ascending argsort, flipped: among equal scores the larger original
-index goes first).  The batch dimension is written out instead of vmapped.
+Counterpart of edsnet_tpu/ops/bbox.py: ``lr2cw`` / ``cw2lr``, ``iou_lr``
+with the reference's convex-hull denominator, the host ``seq2bbox``, and
+``nms_masked`` with the deterministic tie order (stable ascending argsort,
+flipped: among equal scores the larger original index goes first).  The
+batch dimension is written out instead of vmapped.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def lr2cw(bbox_lr: torch.Tensor) -> torch.Tensor:
+    """Left-right to center-width: [..., 2] -> [K, 2] float32."""
+    bbox_lr = bbox_lr.to(torch.float32).reshape(-1, 2)
+    center = (bbox_lr[:, 0] + bbox_lr[:, 1]) * 0.5
+    width = bbox_lr[:, 1] - bbox_lr[:, 0]
+    return torch.stack([center, width], dim=-1)
+
+
+def cw2lr(bbox_cw: torch.Tensor) -> torch.Tensor:
+    """Center-width to left-right: [..., 2] -> [K, 2] float32."""
+    bbox_cw = bbox_cw.to(torch.float32).reshape(-1, 2)
+    left = bbox_cw[:, 0] - bbox_cw[:, 1] * 0.5
+    right = bbox_cw[:, 0] + bbox_cw[:, 1] * 0.5
+    return torch.stack([left, right], dim=-1)
+
+
+def seq2bbox(sequence) -> np.ndarray:
+    """Binary mask -> LR boxes [K, 2] int32 of its runs of ones (host)."""
+    m = np.asarray(sequence, dtype=bool).astype(np.int32)
+    if m.size == 0:
+        return np.zeros((0, 2), dtype=np.int32)
+    starts = np.where(np.diff(np.concatenate([[0], m])) == 1)[0]
+    ends = np.where(np.diff(np.concatenate([m, [0]])) == -1)[0] + 1
+    return np.stack([starts, ends], axis=-1).astype(np.int32)
 
 
 def iou_lr(anchor_bbox: torch.Tensor, target_bbox: torch.Tensor

@@ -1,14 +1,58 @@
-"""Exact 0/1 knapsack by dense DP, batched, on the device.
+"""Exact 0/1 knapsack by dense DP: on the host, and batched on the device.
 
-Counterpart of edsnet_tpu/ops/knapsack.py:knapsack_jax.  The same table,
-the same poisoned capacities above each row's runtime capacity and the same
-reverse backtrack, so the selected set matches, not only the value.
+Counterpart of edsnet_tpu/ops/knapsack.py: its host ``knapsack`` is
+``knapsack_host`` here (with ``_knapsack_numpy``; it serves training-label
+preparation), and its ``knapsack_jax`` is the batched device ``knapsack``.
+Both keep the same reverse backtrack, so the selected set matches, not only
+the value.
 """
 from __future__ import annotations
 
+from typing import Iterable, List
+
+import numpy as np
 import torch
 
 _NEG_BIG = -(10 ** 9)
+
+
+def _knapsack_numpy(values: np.ndarray, weights: np.ndarray,
+                    capacity: int) -> List[int]:
+    """Dense DP with a reverse backtrack; O(n * capacity) time and bits."""
+    n = len(values)
+    if n == 0 or capacity <= 0:
+        return []
+    cap = int(capacity)
+    dp = np.zeros(cap + 1, dtype=np.int64)
+    take = np.zeros((n, cap + 1), dtype=bool)
+    for i in range(n):
+        w, v = int(weights[i]), int(values[i])
+        if w <= cap and v > 0:
+            cand = dp[: cap + 1 - w] + v
+            better = cand > dp[w:]
+            take[i, w:] = better
+            dp[w:] = np.where(better, cand, dp[w:])
+    packed: List[int] = []
+    c = cap
+    for i in range(n - 1, -1, -1):
+        if take[i, c]:
+            packed.append(i)
+            c -= int(weights[i])
+    packed.reverse()
+    return packed
+
+
+def knapsack_host(values: Iterable[int], weights: Iterable[int],
+                  capacity: int) -> List[int]:
+    """Exact 0/1 knapsack on the host -> packed item indices, ascending.
+
+    The dense DP at every table size.  The TPU package hands tables above
+    5e7 cells to its native C++ branch and bound; the port does not load
+    that library, and a shot knapsack at the 15 % budget stays far below
+    that size."""
+    return _knapsack_numpy(np.asarray(list(values), dtype=np.int64),
+                           np.asarray(list(weights), dtype=np.int64),
+                           int(capacity))
 
 
 def knapsack(values: torch.Tensor, weights: torch.Tensor,

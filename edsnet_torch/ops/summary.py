@@ -2,18 +2,56 @@
 
 Counterpart of edsnet_tpu/ops/summary.py: ``f1_score_jax`` ->
 ``f1_score``, ``keyshot_summ_jax`` -> ``keyshot_summ`` (batched over videos),
-``get_summ_diversity`` (host numpy) and ``SAMPLE_RATE``.  Shot scores keep
-the reference's ``int(1000 * mean)`` truncation over masked per-segment
-sums.
+and the host numpy ``upsample_scores``, ``get_keyshot_summ`` (training
+targets) and ``get_summ_diversity``, with ``SAMPLE_RATE``.  Shot scores keep
+the reference's ``int(1000 * mean)`` truncation: over masked per-segment
+sums on the device, over float32 means on the host, where a NaN mean raises
+``ValueError`` as ``int(nan)`` does in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from edsnet_torch.ops.knapsack import knapsack
+from edsnet_torch.ops.knapsack import knapsack, knapsack_host
 
 SAMPLE_RATE = 15
+
+
+def upsample_scores(pred: np.ndarray, picks: np.ndarray,
+                    n_frames: int) -> np.ndarray:
+    """Piecewise-constant upsample of per-pick scores to per-frame scores;
+    frames before the first pick score 0."""
+    picks = np.asarray(picks, dtype=np.int32)
+    frame_scores = np.zeros(n_frames, dtype=np.float32)
+    for i in range(len(picks)):
+        pos_hi = picks[i + 1] if i + 1 < len(picks) else n_frames
+        frame_scores[picks[i]:pos_hi] = pred[i]
+    return frame_scores
+
+
+def get_keyshot_summ(pred: np.ndarray, cps: np.ndarray, n_frames: int,
+                     nfps: np.ndarray, picks: np.ndarray,
+                     proportion: float = 0.15) -> np.ndarray:
+    """Keyshot summary on the host: per-shot means of the upsampled scores,
+    then the knapsack at ``proportion`` of the frames -> [n_frames] bool."""
+    assert pred.shape == picks.shape
+    n_frames = int(n_frames)
+    frame_scores = upsample_scores(pred, picks, n_frames)
+
+    seg_scores = np.zeros(len(cps), dtype=np.int32)
+    for seg_idx, (first, last) in enumerate(cps):
+        mean = np.float32(1000) * frame_scores[first:last + 1].mean()
+        if np.isnan(mean):
+            raise ValueError("cannot convert float NaN to integer")
+        seg_scores[seg_idx] = int(mean)
+
+    packed = knapsack_host(seg_scores, nfps, int(n_frames * proportion))
+    summary = np.zeros(n_frames, dtype=bool)
+    for seg_idx in packed:
+        first, last = cps[seg_idx]
+        summary[first:last + 1] = True
+    return summary
 
 
 def f1_score(pred: torch.Tensor, test: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import io
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -23,10 +23,13 @@ from edsnet_torch.convert import flax_to_state_dict
 _EXT_NDARRAY = 1
 
 
-def save_checkpoint(model: nn.Module, path) -> None:
+def save_checkpoint(model: nn.Module | Mapping[str, torch.Tensor],
+                    path) -> None:
+    """Write a module's ``state_dict``, or a state_dict itself."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(model.state_dict(), path)
+    state = model.state_dict() if isinstance(model, nn.Module) else model
+    torch.save(dict(state), path)
 
 
 def _ndarray(data: bytes) -> np.ndarray:

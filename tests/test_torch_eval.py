@@ -165,10 +165,16 @@ def test_port_imports_no_jax():
         "'edsnet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'edsnet_tpu', 'h5py', 'yaml', 'msgpack'))\n"
+        "('jax', 'jaxlib', 'flax', 'edsnet_tpu', 'h5py', 'yaml', 'msgpack', "
+        "'optax'))\n"
         "assert not bad, bad\n"
-        "print(sum(n.startswith('edsnet_torch') for n in sys.modules))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('edsnet_torch')"
+        "))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 20
+    imported = set(out.stdout.split())
+    assert len(imported) >= 26
+    assert {f"edsnet_torch.{m}" for m in (
+        "train", "trainer", "data.batching", "ops.losses", "parallel.steps",
+        "utils.profiling", "kernels.flash_attention")} <= imported

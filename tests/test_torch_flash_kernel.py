@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel vs its plain twin, on a card.
+"""The CUDA flash-attention kernels (forward, dq, dk/dv) vs their plain
+twins, on a card.
 
 Imports neither JAX nor edsnet_tpu, so it also runs where only the port is
 installed:
@@ -6,7 +7,8 @@ installed:
     python3 -m pytest --noconftest -m cuda tests/test_torch_flash_kernel.py
 
 Without a CUDA device every case skips.  Tolerance 1e-4: f32 with another
-summation order (l, a sum of up to N terms, relative).
+summation order (l, a sum of up to N terms, relative; the gradients
+relative to max(1, max|want|)).
 """
 import numpy as np
 import pytest
@@ -47,6 +49,71 @@ def test_kernel_matches_twin_on_card(cuda_device, bh, n, d, lens):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
 
 
+def _backward_inputs(device, bh, n, d, lens, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, n, d).astype(np.float32))
+                  .to(device) for _ in range(4))
+    mask = torch.from_numpy(_mask_levels(bh, n, lens, n)).to(device)
+    out, m, l = flash.flash_attention_plain(q, k, v, mask)
+    return q, k, v, mask, out, m, l, g
+
+
+BACKWARD_CASES = [(4, 192, 64, [150, 150, 100, 100]), (2, 128, 128, [100, 0]),
+                  (2, 256, 128, [0, 256]), (4, 128, 32, [128] * 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,d,lens", BACKWARD_CASES)
+def test_backward_kernels_match_twin_on_card(cuda_device, bh, n, d, lens):
+    q, k, v, mask, out, m, l, g = _backward_inputs(cuda_device, bh, n, d,
+                                                   lens, seed=bh + n + d)
+    dd = (g * out).sum(-1, keepdim=True)
+    before = (flash.flash_attention_dq.launches,
+              flash.flash_attention_dkv.launches)
+    got = (flash.flash_attention_dq(q, k, v, mask, g, m, l, dd),
+           *flash.flash_attention_dkv(q, k, v, mask, g, m, l, dd))
+    torch.cuda.synchronize()
+    assert (flash.flash_attention_dq.launches,
+            flash.flash_attention_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, g)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * max(1.0, float(w.abs().max())), (name, err)
+
+
+@pytest.mark.cuda
+def test_backward_is_bit_identical_across_runs(cuda_device):
+    args = _backward_inputs(cuda_device, 2, 256, 128, [200, 256], seed=7)
+    first = flash.flash_attention_bwd(*args)
+    second = flash.flash_attention_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_matches_dense_oracle_on_card(cuda_device):
+    rng = np.random.RandomState(3)
+    b, h, n, d = 2, 2, 100, 64
+    q, k, v, g = (torch.from_numpy(rng.randn(b, h, n, d).astype(np.float32))
+                  .to(cuda_device) for _ in range(4))
+    mask = torch.arange(n, device=cuda_device)[None, :] < torch.tensor(
+        [[77], [0]], device=cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if use_kernel:
+            out = flash.flash_attention(*leaves, mask)
+        else:
+            s = torch.einsum("bhnd,bhmd->bhnm", leaves[0], leaves[1])
+            s = torch.where(mask[:, None, None, :], s / d ** 0.5, flash.NEG)
+            out = torch.softmax(s, -1) @ leaves[2]
+        (out * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, a, w in zip("qkv", *grads):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4, msg=f"d{name}")
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_shapes(cuda_device):
     q = torch.zeros(2, 100, 64, device=cuda_device)
@@ -56,3 +123,10 @@ def test_kernel_rejects_bad_shapes(cuda_device):
     q = torch.zeros(2, 64, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_attention_fwd(q, q, q, mask[:, :64])
+    rows = torch.zeros(2, 64, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention_dq(q, q, q, mask[:, :64], q, rows, rows, rows)
+    q = torch.zeros(2, 64, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="dd must be"):
+        flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows,
+                                  rows[:, :32])
