@@ -5,24 +5,38 @@
 Phases, each of which must pass (exit code 1 otherwise):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from the sources in this checkout,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; ptxas must report no spills
+   for any kernel instance (registers and spills are printed);
 3. each kernel against its plain PyTorch twin on the card, at small shapes
-   and at the main path's largest shape: the forward (tolerance 1e-4: f32,
-   another summation order; l, a sum of up to N terms, relative) and the
-   dq and dk/dv backward kernels (max |got - want| <= 1e-4 * max(1,
-   max |want|));
+   (every head dim the kernels take) and at the main path's largest shape.
+   The forward and dk/dv kernels run on the TF32 tensor cores at both
+   precisions: "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a
+   sum of up to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
+   roundoffs of TF32 (out and the log normaliser m + log l: m alone
+   carries the rounding of the row's largest score, and l moves with it).
+   The dq kernel (f32 FMAs) and the gradients: max |got - want| <= tol *
+   max(1, max |want|), tol 1e-4, and 2^-8 for dk/dv at "default".  Beside
+   each reading, the error of the TF32 emulation of kernels/flash_attention
+   .py on the same inputs (flash_attention_tf32, flash_attention_dkv_tf32),
+   with sums rounded to nearest and toward zero: one pass's error is its
+   operand rounding, which both give; at three passes the card's
+   accumulator, rounding toward zero after each mma step, sets it, which
+   the second gives;
 4. the evaluate path at full width: the evaluate entry point's default
    configuration (anchor-based DSNet, attention backbone, F 1024, 8 heads,
    hidden 128, fc depth 7, scales 4 8 16 32) with seeded random weights on
    8 synthetic eccv16-shaped videos, through evaluate_on_device with batch
    size 4; the flash kernel must launch once per eval batch, every F must
    lie in [0, 1], and the dense route (--no-pallas) must give the same
-   per-video F and pred_cls within 1e-4;
+   per-video F and pred_cls within 1e-4; with --num-head 4 (head dim 256,
+   which the kernels do not take) the auto route predicts through the
+   dense path and --use-pallas raises a ValueError naming HEAD_DIMS;
 5. the differentiable attention path, the one that runs the backward
-   kernels: flash_attention(...).backward(g) at B 4, H 8, N 2304, D 128
-   with per-video lengths against autograd of the dense masked attention
-   (the same 1e-4 limit), one launch of each backward kernel per backward,
-   and bit-identical gradients from two runs;
+   kernels: flash_attention(..., precision="highest").backward(g) at B 4,
+   H 8, N 2304, D 128 with per-video lengths against autograd of the dense
+   masked attention (the same 1e-4 limit), one launch of each backward
+   kernel per backward, and bit-identical gradients from two runs; then
+   the same at precision "default" within 2^-8;
 6. the training path at full width: trainer.train_records, same
    configuration, 6 of the synthetic videos to train and 2 to validate,
    batch size 4, 2 epochs, batches composed per epoch from pools; every
@@ -34,7 +48,12 @@ Phases, each of which must pass (exit code 1 otherwise):
 7. times in CUDA events after warm-up, beside the card's name and power
    limit: predict per batch, the whole evaluation, a train step per bucket
    and its stages, an epoch, and each kernel against its bound, its twin
-   and the library call that computes the same function.
+   and the library call that computes the same function; the forward and
+   dk/dv at both precisions.  A kernel's bound is the larger of its bytes
+   over 3.35 TB/s and its operations times the TF32 passes (3 at
+   "highest", 1 at "default"; 3 for dq, whose redesign is next) over the
+   495 TFLOP/s dense TF32 rate; the f32 bound (67 TFLOP/s) is printed
+   beside it.
 
 The last lines are a JSON object describing each kernel, the nvidia-smi
 line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
@@ -45,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -54,8 +74,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-TOL = 1e-4
+TOL = 1e-4                    # the kernel's own arithmetic, f32 sums
+TOL_DEFAULT = 2.0 ** -8       # one TF32 pass against the f32 twin (phase 3)
+TOLS = {"highest": TOL, "default": TOL_DEFAULT}
 F32_PEAK_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
+TF32_PEAK_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 
@@ -66,6 +89,25 @@ def nvidia_smi() -> str:
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def ptxas_summary(log: str):
+    """(kernel<template args>, spill line, registers) per compiled entry of
+    an nvcc -Xptxas -v report."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d+(flash_\w+?_kernel)"
+                          r"I((?:Li\d+E)+)", line)
+        if entry:
+            args = ", ".join(re.findall(r"Li(\d+)E", entry.group(2)))
+            kernel, spills = f"{entry.group(1)}<{args}>", ""
+        elif kernel and "spill" in line:
+            spills = line.split("stack frame, ")[-1].strip()
+        elif kernel and "Used" in line and "registers" in line:
+            out.append((kernel, spills,
+                        int(re.search(r"Used (\d+) registers", line)[1])))
+            kernel = None
+    return out
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -105,72 +147,142 @@ def flash_case(flash, bh, n, d, lens, seed):
     return q, k, v, mask.cuda()
 
 
-def check_flash(flash, phases: Phases) -> float:
-    """Kernel vs twin; returns the largest abs error of out over all cases."""
-    worst = 0.0
-    cases = [(4, 192, 64, [150, 150, 100, 100]),
-             (2, 100, 128, [100, 100]),
-             (2, 256, 128, [0, 256]),
-             (32, 2304, 128, [2304] * 32)]
-    for i, (bh, n, d, lens) in enumerate(cases):
+FLASH_CASES = [(4, 192, 64, [150, 150, 100, 100]),
+               (2, 100, 128, [100, 100]),
+               (2, 256, 128, [0, 256]),
+               (32, 2304, 128, [2304] * 32),
+               (4, 128, 32, [128, 100, 64, 0])]
+
+
+def emulated_errors(emulate, want) -> str:
+    """The largest abs error against the twin of each output of a TF32
+    emulation (kernels/flash_attention.py): sums rounded to nearest, then
+    rounded toward zero after each mma step as the card's accumulator
+    does."""
+    out = []
+    for toward_zero in (False, True):
+        got = emulate(toward_zero=toward_zero)
+        out.append(" ".join(f"{float((a - w).abs().max()):.3e}"
+                            for a, w in zip(got, want)))
+    return f"emulated {out[0]} (nearest), {out[1]} (toward zero)"
+
+
+def forward_errors(got, want) -> Dict[str, float]:
+    """Largest errors of a forward against the twin: out and m abs, l
+    relative, and the log normaliser m + log l abs."""
+    errs = {name: float((g - w).abs().max())
+            for name, g, w in zip(("out", "m"), got, want)}
+    errs["l rel"] = float(((got[2] - want[2]) / want[2]).abs().max())
+    errs["m + log l"] = float(((got[1] + got[2].log())
+                               - (want[1] + want[2].log())).abs().max())
+    return errs
+
+
+def check_flash(flash, phases: Phases) -> Dict[str, float]:
+    """Forward kernel vs twin at both precisions: out, m and l (relative)
+    within TOL at "highest"; out and m + log l within TOL_DEFAULT at
+    "default".  Returns the largest abs error of out over all cases, per
+    precision."""
+    worst = {p: 0.0 for p in TOLS}
+    for i, (bh, n, d, lens) in enumerate(FLASH_CASES):
         args = flash_case(flash, bh, n, d, lens, seed=i)
-        got = flash.flash_attention_fwd(*args)
-        torch.cuda.synchronize()
         want = flash.flash_attention_plain(*args)
-        errs = []
-        for name, g, w in zip(("out", "m", "l"), got, want):
-            diff = (g - w).abs()
-            abs_err = float(diff.max())
-            rel_err = float((diff / w.abs().clamp(min=1.0)).max())
-            errs.append(f"{name} abs {abs_err:.3e} rel {rel_err:.3e}")
-            if name == "out":
-                worst = max(worst, abs_err)
-            ok = rel_err <= TOL if name == "l" else abs_err <= TOL
-            phases.check(ok and bool(torch.isfinite(g).all()),
-                         f"flash ({bh}, {n}, {d}) lens {sorted(set(lens))} "
-                         f"{name}")
-        print(f"    {'; '.join(errs)}")
+        label = f"({bh}, {n}, {d}) lens {sorted(set(lens))}"
+        for precision, tol in TOLS.items():
+            passes = flash.PASSES[precision]
+            got = flash.flash_attention_fwd(*args, precision=precision)
+            torch.cuda.synchronize()
+            errs = forward_errors(got, want)
+            worst[precision] = max(worst[precision], errs["out"])
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            held = ("out", "m", "l rel") if precision == "highest" else (
+                "out", "m + log l")
+            for name in held:
+                phases.check(errs[name] <= tol and finite,
+                             f"flash {precision} {label} {name} within "
+                             f"{tol:g}")
+            print(f"    {precision}: " + "; ".join(
+                f"{k} {e:.3e}" for k, e in errs.items()))
+            print("      out m l " + emulated_errors(
+                lambda **kw: flash.flash_attention_tf32(*args, passes, **kw),
+                want))
     return worst
 
 
-def grad_limit_ok(got: torch.Tensor, want: torch.Tensor) -> Tuple[bool, float]:
-    """max |got - want| <= TOL * max(1, max |want|), and finite."""
+def grad_limit_ok(got: torch.Tensor, want: torch.Tensor, tol: float = TOL
+                  ) -> Tuple[bool, float]:
+    """max |got - want| <= tol * max(1, max |want|), and finite."""
     err = float((got - want).abs().max())
-    ok = (err <= TOL * max(1.0, float(want.abs().max()))
+    ok = (err <= tol * max(1.0, float(want.abs().max()))
           and bool(torch.isfinite(got).all()))
     return ok, err
 
 
-def check_flash_backward(flash, phases: Phases) -> Tuple[float, float]:
-    """dq and dk/dv kernels vs the twins on the forward's four cases;
-    returns the largest abs error of dq and of dk/dv."""
-    worst = {"dq": 0.0, "dkv": 0.0}
-    cases = [(4, 192, 64, [150, 150, 100, 100]),
-             (2, 100, 128, [100, 100]),
-             (2, 256, 128, [0, 256]),
-             (32, 2304, 128, [2304] * 32)]
-    for i, (bh, n, d, lens) in enumerate(cases):
+def check_flash_backward(flash, phases: Phases
+                         ) -> Tuple[float, Dict[str, float]]:
+    """dq and dk/dv kernels vs the twins on the forward's cases, dk/dv at
+    both precisions; returns the largest abs error of dq and, per
+    precision, of dk/dv."""
+    worst_dq, worst_dkv = 0.0, {p: 0.0 for p in TOLS}
+    for i, (bh, n, d, lens) in enumerate(FLASH_CASES):
         q, k, v, mask = flash_case(flash, bh, n, d, lens, seed=10 + i)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)
                         ).cuda()
         out, m, l = flash.flash_attention_plain(q, k, v, mask)
         dd = (g * out).sum(-1, keepdim=True)
-        got = (flash.flash_attention_dq(q, k, v, mask, g, m, l, dd),
-               *flash.flash_attention_dkv(q, k, v, mask, g, m, l, dd))
+        args = (q, k, v, mask, g, m, l, dd)
+        label = f"({bh}, {n}, {d}) lens {sorted(set(lens))}"
+        dq = flash.flash_attention_dq(*args)
         torch.cuda.synchronize()
-        want = (flash.flash_attention_dq_plain(q, k, v, mask, g, m, l, dd),
-                *flash.flash_attention_dkv_plain(q, k, v, mask, g, m, l, dd))
-        errs = []
-        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-            ok, err = grad_limit_ok(a, w)
-            key = "dq" if name == "dq" else "dkv"
-            worst[key] = max(worst[key], err)
-            errs.append(f"{name} abs {err:.3e} (max |want| "
-                        f"{float(w.abs().max()):.3e})")
-            phases.check(ok, f"flash backward ({bh}, {n}, {d}) lens "
-                             f"{sorted(set(lens))} {name}")
+        ok, err = grad_limit_ok(dq, flash.flash_attention_dq_plain(*args))
+        worst_dq = max(worst_dq, err)
+        phases.check(ok, f"flash backward {label} dq")
+        errs = [f"dq abs {err:.3e}"]
+        want = flash.flash_attention_dkv_plain(*args)
+        for precision, tol in TOLS.items():
+            passes = flash.PASSES[precision]
+            got = flash.flash_attention_dkv(*args, precision=precision)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dk", "dv"), got, want):
+                ok, err = grad_limit_ok(a, w, tol)
+                worst_dkv[precision] = max(worst_dkv[precision], err)
+                limit = tol * max(1.0, float(w.abs().max()))
+                errs.append(f"{name} {precision} abs {err:.3e} (limit "
+                            f"{limit:.3e})")
+                phases.check(ok, f"flash backward {precision} {label} "
+                                 f"{name} within {tol:g}")
+            errs.append("dk dv " + emulated_errors(
+                lambda **kw: flash.flash_attention_dkv_tf32(*args, passes,
+                                                            **kw), want))
         print(f"    {'; '.join(errs)}")
-    return worst["dq"], worst["dkv"]
+    return worst_dq, worst_dkv
+
+
+def check_head_dim_routing(flash, get_model, args, tb, phases: Phases
+                           ) -> None:
+    """--num-head 4 at F 1024 (head dim 256, which the kernels do not take):
+    the auto route predicts through the dense path on the card, and
+    --use-pallas raises a ValueError naming HEAD_DIMS."""
+    for use_pallas in (None, True):
+        model = get_model(args.model, **{**vars(args), "num_head": 4,
+                                         "use_pallas": use_pallas})
+        model = model.cuda().eval()
+        before = flash.flash_attention_fwd.launches
+        try:
+            with torch.inference_mode():
+                pred_cls, _ = model.predict(tb["seq"], tb["mask"])
+            outcome = (f"{flash.flash_attention_fwd.launches - before} "
+                       f"kernel launches, finite "
+                       f"{bool(torch.isfinite(pred_cls).all())}")
+        except ValueError as err:
+            outcome = f"ValueError: {err}"
+        print(f"    --num-head 4, use_pallas {use_pallas}: {outcome}")
+        want = ("0 kernel launches, finite True" if use_pallas is None
+                else "ValueError: --use-pallas: head dim 256 not in "
+                     "HEAD_DIMS")
+        phases.check(outcome.startswith(want),
+                     f"head dim 256 with use_pallas {use_pallas}: "
+                     f"{'dense path' if use_pallas is None else 'raises'}")
 
 
 def dense_attention(q, k, v, mask):
@@ -182,7 +294,8 @@ def dense_attention(q, k, v, mask):
 
 def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
     """The differentiable attention path at full width; returns the launch
-    counts of its counted run (one forward and one backward)."""
+    counts of its counted run (one forward and one backward at
+    precision "highest")."""
     b, h, n, d = 4, 8, 2304, 128
     gen = torch.Generator().manual_seed(21)
     q, k, v, g = (torch.randn(b, h, n, d, generator=gen).cuda()
@@ -190,29 +303,34 @@ def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
     lens = torch.tensor([2304, 2000, 1500, 700])
     mask = (torch.arange(n)[None, :] < lens[:, None]).cuda()
 
-    def grads(fn):
+    def grads(fn, **kw):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        fn(*leaves, mask).backward(g)
+        fn(*leaves, mask, **kw).backward(g)
         return [t.grad for t in leaves]
 
     kernels = (flash.flash_attention_fwd, flash.flash_attention_dq,
                flash.flash_attention_dkv)
-    for fn in kernels:
-        fn.launches = 0
-    got = grads(flash.flash_attention)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    again = grads(flash.flash_attention)
     want = grads(dense_attention)
-    errs = []
-    for name, a, w in zip("qkv", got, want):
-        ok, err = grad_limit_ok(a, w)
-        errs.append(f"d{name} abs {err:.3e}")
-        phases.check(ok, f"flash_attention d{name} vs dense autograd at "
-                         f"({b}, {h}, {n}, {d}), lens {lens.tolist()}")
-    print(f"    {'; '.join(errs)}")
-    phases.check(all(torch.equal(a, c) for a, c in zip(got, again)),
-                 "two backward runs give bit-identical gradients")
+    launches = None
+    for precision, tol in TOLS.items():
+        for fn in kernels:
+            fn.launches = 0
+        got = grads(flash.flash_attention, precision=precision)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = {fn.__name__: fn.launches for fn in kernels}
+        again = grads(flash.flash_attention, precision=precision)
+        errs = []
+        for name, a, w in zip("qkv", got, want):
+            ok, err = grad_limit_ok(a, w, tol)
+            errs.append(f"d{name} abs {err:.3e}")
+            phases.check(ok, f"flash_attention {precision} d{name} vs dense "
+                             f"autograd at ({b}, {h}, {n}, {d}), lens "
+                             f"{lens.tolist()}, within {tol:g}")
+        print(f"    {precision}: {'; '.join(errs)}")
+        phases.check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                     f"two {precision} backward runs give bit-identical "
+                     f"gradients")
     phases.check(launches == {"flash_attention_fwd": 1,
                               "flash_attention_dq": 1,
                               "flash_attention_dkv": 1},
@@ -404,6 +522,75 @@ def time_training(phases: Phases, train_videos, val_videos, args,
     phases.check(all(t > 0 for t in per_bucket.values()), "train steps timed")
 
 
+def time_kernels(flash, smi: str) -> Dict[str, dict]:
+    """Each kernel at (BH, N, D) = (32, 2304, 128), the main path's largest
+    shape, at each precision it takes, beside its bound, its twin and the
+    library call that computes the same function (CUDA events)."""
+    q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
+    bh, n, d = q.shape
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
+                    ).cuda()
+    out, m, l = flash.flash_attention_fwd(q, k, v, mask)
+    dd = (g * out).sum(-1, keepdim=True)
+    bwd_args = (q, k, v, mask, g, m, l, dd)
+    attn_mask = (mask > 0)[None, :, None, :]
+    lq, lk, lv = (t[None].clone().requires_grad_() for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=attn_mask)
+    # per kernel: operations per BH*N^2*D, [N, D] and [N] tensors read once
+    # or written once, the call at a precision, its twin, the library call
+    # and the precisions it takes (dq: f32 FMAs, bound at 3 passes)
+    rows = (
+        ("flash_attention_fwd", 4, 4, 3,
+         lambda p: flash.flash_attention_fwd(q, k, v, mask, precision=p),
+         lambda: flash.flash_attention_plain(q, k, v, mask),
+         lambda: torch.nn.functional.scaled_dot_product_attention(
+             q[None], k[None], v[None], attn_mask=attn_mask),
+         "scaled_dot_product_attention", tuple(TOLS)),
+        ("flash_attention_dq", 6, 5, 4,
+         lambda p: flash.flash_attention_dq(*bwd_args),
+         lambda: flash.flash_attention_dq_plain(*bwd_args),
+         lambda: torch.autograd.grad(lib_out, (lq,), g[None],
+                                     retain_graph=True),
+         "autograd.grad of q through scaled_dot_product_attention",
+         ("highest",)),
+        ("flash_attention_dkv", 8, 6, 4,
+         lambda p: flash.flash_attention_dkv(*bwd_args, precision=p),
+         lambda: flash.flash_attention_dkv_plain(*bwd_args),
+         lambda: torch.autograd.grad(lib_out, (lk, lv), g[None],
+                                     retain_graph=True),
+         "autograd.grad of k, v through scaled_dot_product_attention",
+         tuple(TOLS)))
+    timing = {}
+    for name, n_ops, n_mats, n_rows, call, plain, library, lib_name, \
+            precisions in rows:
+        ops = n_ops * bh * n * n * d
+        io_ms = 4.0 * bh * (n_mats * n * d + n_rows * n) \
+            / HBM_BYTES_PER_S * 1e3
+        f32_ms = ops / F32_PEAK_FLOPS * 1e3
+        t = timing[name] = {
+            "plain_ms": cuda_ms(plain, iters=5),
+            "library_ms": cuda_ms(library),
+            "f32_bound_ms": max(f32_ms, io_ms)}
+        for precision in precisions:
+            passes = flash.PASSES[precision]
+            ops_ms = passes * ops / TF32_PEAK_FLOPS * 1e3
+            t[precision] = {
+                "ms": cuda_ms(lambda: call(precision)),
+                "bound_ms": max(ops_ms, io_ms),
+                "bound_by": "operations" if ops_ms >= io_ms else "bytes"}
+            r = t[precision]
+            print(f"  [{smi}] {name} (32, 2304, 128) {precision}: kernel "
+                  f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.2f} TFLOP/s), "
+                  f"twin {t['plain_ms']:.4f} ms, {lib_name} "
+                  f"{t['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"(operations {ops_ms:.4f} ms at {passes} x "
+                  f"{ops:.4g} on 495 TFLOP/s TF32, bytes {io_ms:.4f} ms at "
+                  f"3.35 TB/s; f32 bound {t['f32_bound_ms']:.4f} ms at 67 "
+                  f"TFLOP/s)")
+    return timing
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -479,12 +666,14 @@ def main() -> int:
     print(f"  built {len(KERNEL_SOURCES)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+        for kernel, spills, regs in ptxas_summary(log):
+            print(f"    {name}: {kernel}: {regs} registers, {spills}")
+            phases.check(spills.startswith("0 bytes spill stores, 0 bytes "
+                                           "spill loads"),
+                         f"ptxas: no spills in {kernel}")
 
     print("phase: kernels vs plain twins")
-    max_abs_err = check_flash(flash, phases)
+    fwd_err = check_flash(flash, phases)
     dq_err, dkv_err = check_flash_backward(flash, phases)
 
     print("phase: evaluate path at full width")
@@ -552,6 +741,8 @@ def main() -> int:
                 lambda: model.predict(tb["seq"], tb["mask"]), iters=5))
     phases.check(cls_err <= TOL, f"pred_cls kernel vs dense route max abs "
                                  f"err {cls_err:.3e}")
+    check_head_dim_routing(flash, get_model, args, prepared[-1]["tb"],
+                           phases)
 
     # where one eval batch's time goes, on the largest bucket
     entry = prepared[-1]
@@ -586,54 +777,7 @@ def main() -> int:
 
     print("phase: timing")
     time_training(phases, train_videos, val_videos, train_args, smi)
-    q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
-    kernel_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, mask))
-    plain_ms = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, mask))
-    attn_mask = (mask > 0)[None, :, None, :]
-    library_ms = cuda_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(
-                             q[None], k[None], v[None], attn_mask=attn_mask))
-    bh, n, d = q.shape
-    flops = 4.0 * bh * n * n * d
-    nbytes = 4.0 * bh * (4 * n * d + 3 * n)
-    flop_ms = flops / F32_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(flop_ms, byte_ms)
-
-    # backward kernels at the same shape: inputs q, k, v, g [N, D] and the
-    # mask, m, l, dd [N] read once; dq, or dk and dv, written once
-    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
-                    ).cuda()
-    out, m, l = flash.flash_attention_fwd(q, k, v, mask)
-    dd = (g * out).sum(-1, keepdim=True)
-    bwd_args = (q, k, v, mask, g, m, l, dd)
-    lq, lk, lv = (t[None].clone().requires_grad_() for t in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        lq, lk, lv, attn_mask=attn_mask)
-    bwd = {}
-    for name, n_ops, n_out, kernel, plain, wrt in (
-            ("flash_attention_dq", 6, 1, flash.flash_attention_dq,
-             flash.flash_attention_dq_plain, (lq,)),
-            ("flash_attention_dkv", 8, 2, flash.flash_attention_dkv,
-             flash.flash_attention_dkv_plain, (lk, lv))):
-        ops_ms = n_ops * bh * n * n * d / F32_PEAK_FLOPS * 1e3
-        io_ms = 4.0 * bh * ((4 + n_out) * n * d + 4 * n) \
-            / HBM_BYTES_PER_S * 1e3
-        bwd[name] = {
-            "ms": cuda_ms(lambda: kernel(*bwd_args)),
-            "plain_ms": cuda_ms(lambda: plain(*bwd_args), iters=5),
-            "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                lib_out, wrt, g[None], retain_graph=True)),
-            "bound_ms": max(ops_ms, io_ms),
-            "bound_by": "operations" if ops_ms >= io_ms else "bytes",
-            "tflops": n_ops * bh * n * n * d / 1e9}
-        t = bwd[name]
-        print(f"  [{smi}] {name} (32, 2304, 128): kernel {t['ms']:.4f} ms "
-              f"({t['tflops'] / t['ms']:.2f} TFLOP/s), twin "
-              f"{t['plain_ms']:.4f} ms, autograd.grad through "
-              f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms (operations {ops_ms:.4f} ms at 67 "
-              f"TFLOP/s f32, bytes {io_ms:.4f} ms at 3.35 TB/s)")
+    timing = time_kernels(flash, smi)
     print(f"  [{smi}] predict ms per batch "
           f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
           f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); eval of "
@@ -643,35 +787,33 @@ def main() -> int:
           f"({pred_cls.shape[1]} boxes) {nms_ms:.1f} ms + rasterise, "
           f"keyshot knapsack and F1 {batch_ms - predict_ms[-1] - nms_ms:.1f} "
           f"ms")
-    print(f"  [{smi}] flash_attention_fwd (32, 2304, 128): kernel "
-          f"{kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.2f} TFLOP/s), "
-          f"twin {plain_ms:.4f} ms, scaled_dot_product_attention "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (operations "
-          f"{flop_ms:.4f} ms at 67 TFLOP/s f32, bytes {byte_ms:.4f} ms at "
-          f"3.35 TB/s)")
-
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "edsnet_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "edsnet_tpu/kernels/flash_attention.py:58",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "library_ms": library_ms}]
-    for name, line, err in (("flash_attention_dq", 155, dq_err),
-                            ("flash_attention_dkv", 202, dkv_err)):
-        t = bwd[name]
-        kernels.append({
+    kernels = []
+    for name, source, line, used, err, err_default in (
+            ("flash_attention_fwd", "flash_attention_fwd.cu", 58, launches,
+             fwd_err["highest"], fwd_err["default"]),
+            ("flash_attention_dq", "flash_attention_bwd.cu", 155,
+             bwd_launches["flash_attention_dq"], dq_err, None),
+            ("flash_attention_dkv", "flash_attention_bwd.cu", 202,
+             bwd_launches["flash_attention_dkv"], dkv_err["highest"],
+             dkv_err["default"])):
+        t = timing[name]
+        entry = {
             "name": name, "route": "cuda",
-            "source": "edsnet_torch/csrc/flash_attention_bwd.cu",
+            "source": f"edsnet_torch/csrc/{source}",
             "replaces": f"edsnet_tpu/kernels/flash_attention.py:{line}",
-            "launches": bwd_launches[name], "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "launches": used, "max_abs_err": err,
+            "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["highest"]["bound_ms"],
+            "bound_by": t["highest"]["bound_by"],
+            "library_ms": t["library_ms"]}
+        if err_default is not None:
+            entry["default"] = {"ms": t["default"]["ms"],
+                                "max_abs_err": err_default,
+                                "bound_ms": t["default"]["bound_ms"]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

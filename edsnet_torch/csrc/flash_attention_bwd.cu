@@ -1,6 +1,7 @@
-// Masked flash-attention backward for Hopper (sm_90a), f32 end to end: two
+// Masked flash-attention backward for Hopper (sm_90a), f32 in and out: two
 // kernels, one for dq and one for dk/dv, each output element with exactly
-// one writer (no atomics), so gradients are bit-identical from run to run.
+// one writer (no atomics) and a fixed loop order, so gradients are
+// bit-identical from run to run.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel` launched by
 // `_flash_backward` in edsnet_tpu/kernels/flash_attention.py.  Same function:
@@ -12,22 +13,43 @@
 // dv keeps P on masked keys: a fully-masked row (m = -1e30) has P = 1/n over
 // its real keys and 0 over pad keys, and feeds dv but not dk.
 //
-// Bound on this card: dq does 6*N^2*D FLOPs per (batch*head) (q k^T, g v^T,
-// dS k), dk/dv 8*N^2*D (q k^T, g v^T, P^T g, dS^T q), against 4*(5*N*D + 3*N)
-// and 4*(7*N*D + 3*N) bytes; at N = 2304, D = 128 both are bound by
-// operations.  This first version runs them as f32 FMAs, so the ceiling is
-// the 67 TFLOP/s f32 rate.  The design mirrors the forward kernel
-// (csrc/flash_attention_fwd.cu): the [N, N] score matrix never leaves the
-// block, and the FMAs are fed from shared memory with 4x4 register tiles:
-//   - dq: one block per (bh, 64-row q tile) loops over 64-key tiles, keeping
-//     the 64 x D accumulator in registers;
-//   - dk/dv: one block per (bh, 64-key tile) loops over 64-row q tiles,
-//     keeping two 64 x D accumulators in registers (64 floats per thread at
-//     D = 128);
-//   - every tile that a 16 x 16 thread grid reads across rows is padded by
-//     one float against bank conflicts; at D = 128 the blocks use about 149
-//     and 166 KB of dynamic shared memory, so each runs one block per SM.
+// Bound on this card: dq does 6*N^2*D operations per (batch*head) (q k^T,
+// g v^T, dS k), dk/dv 8*N^2*D (k q^T, v g^T, P^T g, dS^T q), against
+// 4*(5*N*D + 3*N) and 4*(7*N*D + 3*N) bytes; at N = 2304, D = 128 both are
+// bound by operations.
+//
+// dq runs its products as f32 FMAs (ceiling 67 TFLOP/s): one block per
+// (bh, 64-row q tile) loops over 64-key tiles, keeping the 64 x D
+// accumulator in registers and feeding 4x4 register tiles from shared
+// memory padded by one float (about 149 KB at D = 128).
+//
+// dk/dv runs all four products on the TF32 tensor cores (mma.sync
+// m16n8k8, csrc/tf32_mma.cuh), at PASSES = 3 for precision "highest" and 1
+// for "default": at (BH, N, D) = (32, 2304, 128) and 495 TFLOP/s dense
+// TF32 that bounds it at 1.054 and 0.351 ms.  Design:
+//   - one block of 4 warps per (bh, 64-key tile); each warp owns 16 keys and
+//     keeps dk and dv (16 x D each) in accumulator registers while the block
+//     loops over 16-row q tiles in a fixed order;
+//   - per q tile each warp forms S^T = k q^T and dP^T = v g^T (16 keys x 16
+//     rows), turns them into P^T and dS^T in registers from the rows' m, l
+//     and Dd, and feeds both straight into dv += P^T g and dk += dS^T q as A
+//     fragments under a renamed k index: no P or dS tile touches shared
+//     memory;
+//   - k and v stay in shared memory for the whole loop; q, g and the rows'
+//     m, l, Dd stream in with 16-byte cp.async.cg in two stages, so tile
+//     i + 1 is in flight while tile i is multiplied.  Rows are padded to
+//     D + 4 floats, so every fragment load of a warp touches 32 distinct
+//     banks;
+//   - shared memory at D = 128: k and v 67.6 KB plus two stages of q, g
+//     (33.8 KB) and the row statistics, about 102 KB, so two blocks (8
+//     warps) run on each SM; the scale multiplies S^T and, at the end, dk.
+// Why mma.sync and not wgmma: wgmma's TF32 form reads both operands K-major
+// from shared memory; P^T g and dS^T q are not K-major in g and q, so they
+// would need transposed copies, and 3 passes residual copies of every
+// operand, beyond the shared memory a block can have.
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -168,19 +190,29 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int DKV_WARPS = 4;
+constexpr int DKV_THREADS = 32 * DKV_WARPS;
+constexpr int DKV_BK = 16 * DKV_WARPS;  // keys per block, 16 per warp
+constexpr int DKV_BQ = 16;              // q rows per tile
+constexpr int DKV_STAGES = 2;
+
 template <int D>
 struct DkvLayout {
-  static constexpr int LD = D + 1;   // k, v, q, g rows
-  static constexpr int LDP = BK + 1; // P and dS tiles, [q row][key]
-  static constexpr size_t kFloats = 4 * 64 * LD + 2 * BQ * LDP + 3 * BQ;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr int LD = D + 4;          // padded row stride, floats
+  static constexpr int kKV = DKV_BK * LD;   // the block's k or v rows
+  static constexpr int kQG = DKV_BQ * LD;   // one q or g tile
+  // one stage: q, g, then the rows' m, l and Dd
+  static constexpr int kStage = 2 * kQG + 3 * DKV_BQ;
+  static constexpr size_t kBytes =
+      (2 * kKV + DKV_STAGES * kStage) * sizeof(float);
 };
 
-// dk, dv for keys k0 .. k0+63 of one (batch*head).  Thread (ty, tx) owns
-// keys ty + 16a; in the score tile, q rows tx + 16b; in the accumulators,
-// columns tx + 16c.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// dk, dv for keys k0 .. k0+63 of one (batch*head).  Warp w owns keys
+// k0 + 16w + g and k0 + 16w + g + 8 (g = lane / 4); in its S^T and dP^T
+// accumulators, element e of tile nt is q row 8 nt + 2t + (e & 1) of the
+// current q tile (t = lane % 4).
+template <int D, int PASSES>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ mask,
                  const float* __restrict__ g, const float* __restrict__ m_in,
@@ -188,128 +220,126 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ dd_in, float* __restrict__ dk,
                  float* __restrict__ dv, int n, float scale) {
   using L = DkvLayout<D>;
-  constexpr int DC = D / 16;
+  constexpr int LD = L::LD;
+  constexpr int DT = D / 8;       // 8-wide column tiles of dk/dv
+  constexpr int QT = DKV_BQ / 8;  // 8-row column tiles of S^T
 
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + BK * L::LD;
-  float* qs = vs + BK * L::LD;
-  float* gs = qs + BQ * L::LD;
-  float* ps = gs + BQ * L::LD;
-  float* dss = ps + BQ * L::LDP;
-  float* m_s = dss + BQ * L::LDP;
-  float* l_s = m_s + BQ;
-  float* dd_s = l_s + BQ;
+  float* vs = ks + L::kKV;
+  float* stages = vs + L::kKV;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * DKV_BK;
   const size_t base = static_cast<size_t>(bh) * n * D;
   const size_t row_base = static_cast<size_t>(bh) * n;
 
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const size_t gi = base + static_cast<size_t>(k0 + r) * D + c;
-    ks[r * L::LD + c] = k[gi];
-    vs[r * L::LD + c] = v[gi];
-  }
-  int km[4];
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    km[a] = mask[row_base + k0 + ty + 16 * a];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
-  }
+  auto load_q = [&](int stage, int i0) {
+    float* qs = stages + stage * L::kStage;
+    const size_t at = base + static_cast<size_t>(i0) * D;
+    tf32::copy_rows<D, DKV_THREADS>(qs, LD, q + at, DKV_BQ, tid);
+    tf32::copy_rows<D, DKV_THREADS>(qs + L::kQG, LD, g + at, DKV_BQ, tid);
+    constexpr int kRowChunks = DKV_BQ / 4;  // 16-byte chunks per statistic
+    if (tid < 3 * kRowChunks) {
+      const int which = tid / kRowChunks, c = 4 * (tid % kRowChunks);
+      const float* src = which == 0 ? m_in : (which == 1 ? l_in : dd_in);
+      tf32::cp_async16(qs + 2 * L::kQG + which * DKV_BQ + c,
+                       src + row_base + i0 + c);
+    }
+  };
+  const size_t at = base + static_cast<size_t>(k0) * D;
+  tf32::copy_rows<D, DKV_THREADS>(ks, LD, k + at, DKV_BK, tid);
+  tf32::copy_rows<D, DKV_THREADS>(vs, LD, v + at, DKV_BK, tid);
+  load_q(0, 0);
+  tf32::cp_async_commit();
 
-  for (int i0 = 0; i0 < n; i0 += BQ) {
-    __syncthreads();  // the previous tile's qs/gs/ps/dss reads are done
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const size_t gi = base + static_cast<size_t>(i0 + r) * D + c;
-      qs[r * L::LD + c] = q[gi] * scale;
-      gs[r * L::LD + c] = g[gi];
-    }
-    if (tid < BQ) {
-      m_s[tid] = m_in[row_base + i0 + tid];
-      l_s[tid] = l_in[row_base + i0 + tid];
-      dd_s[tid] = dd_in[row_base + i0 + tid];
-    }
+  const int key = k0 + warp * 16 + gq;
+  const int km[2] = {mask[row_base + key], mask[row_base + key + 8]};
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  const float* kw = ks + warp * 16 * LD;
+  const float* vw = vs + warp * 16 * LD;
+
+  const int n_tiles = n / DKV_BQ;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_q((i + 1) % DKV_STAGES, (i + 1) * DKV_BQ);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();  // tile i (and k, v) have landed
     __syncthreads();
+    const float* qs = stages + (i % DKV_STAGES) * L::kStage;
+    const float* gs = qs + L::kQG;
+    const float* m_s = gs + L::kQG;
+    const float* l_s = m_s + DKV_BQ;
+    const float* dd_s = l_s + DKV_BQ;
 
-    // s = (q * scale) k^T and dP = g v^T for keys ty + 16a, rows tx + 16b
-    float s[4][4], dp[4][4];
+    // S^T = k q^T and dP^T = v g^T for the warp's 16 keys, the tile's rows
+    float st[QT][4], dpt[QT][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int nt = 0; nt < QT; ++nt)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qb[4], gb[4];
+    for (int kk = 0; kk < DT; ++kk) {
+      const auto ak = tf32::load_a<PASSES>(kw + 8 * kk, LD, gq, t);
+      const auto av = tf32::load_a<PASSES>(vw + 8 * kk, LD, gq, t);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        ka[a] = ks[(ty + 16 * a) * L::LD + d];
-        va[a] = vs[(ty + 16 * a) * L::LD + d];
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        qb[b] = qs[(tx + 16 * b) * L::LD + d];
-        gb[b] = gs[(tx + 16 * b) * L::LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s[a][b] = fmaf(qb[b], ka[a], s[a][b]);
-          dp[a][b] = fmaf(gb[b], va[a], dp[a][b]);
-        }
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int r = tx + 16 * b;
-      const float m = m_s[r], l = l_s[r], dd = dd_s[r];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p = expf(masked_score(s[a][b], km[a]) - m) / l;
-        ps[r * L::LDP + ty + 16 * a] = p;
-        dss[r * L::LDP + ty + 16 * a] =
-            km[a] > 0 ? p * (dp[a][b] - dd) : 0.f;
+      for (int nt = 0; nt < QT; ++nt) {
+        const int off = 8 * nt * LD + 8 * kk;
+        tf32::mma<PASSES>(st[nt], ak,
+                          tf32::load_bt<PASSES>(qs + off, LD, gq, t));
+        tf32::mma<PASSES>(dpt[nt], av,
+                          tf32::load_bt<PASSES>(gs + off, LD, gq, t));
       }
     }
-    __syncthreads();
 
-    // dv += P^T g and dk += dS^T (q * scale) for keys ty + 16a, columns
-    // tx + 16c
-#pragma unroll 4
-    for (int i = 0; i < BQ; ++i) {
-      float pa[4], da[4];
+    // P^T and dS^T in place (element e: key row e >> 1, q row r)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pa[a] = ps[i * L::LDP + ty + 16 * a];
-        da[a] = dss[i * L::LDP + ty + 16 * a];
+    for (int nt = 0; nt < QT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * nt + 2 * t + (e & 1);
+        const int kmask = km[e >> 1];
+        const float s = kmask > 0 ? st[nt][e] * scale
+                                  : (kmask == 0 ? NEG : NEG2);
+        const float p = expf(s - m_s[r]) / l_s[r];
+        st[nt][e] = p;
+        dpt[nt][e] = kmask > 0 ? p * (dpt[nt][e] - dd_s[r]) : 0.f;
       }
+
+    // dv += P^T g and dk += dS^T q, both A operands from the accumulators
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float gg = gs[i * L::LD + tx + 16 * c];
-        const float qq = qs[i * L::LD + tx + 16 * c];
+    for (int kk = 0; kk < QT; ++kk) {
+      const auto ap = tf32::acc_as_a<PASSES>(st[kk]);
+      const auto ads = tf32::acc_as_a<PASSES>(dpt[kk]);
+      const float* gk = gs + 8 * kk * LD;
+      const float* qk = qs + 8 * kk * LD;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          dv_acc[a][c] = fmaf(pa[a], gg, dv_acc[a][c]);
-          dk_acc[a][c] = fmaf(da[a], qq, dk_acc[a][c]);
-        }
+      for (int dt = 0; dt < DT; ++dt) {
+        tf32::mma<PASSES>(dv_acc[dt], ap, tf32::load_b_renamed<PASSES>(
+                                              gk + 8 * dt, LD, gq, t));
+        tf32::mma<PASSES>(dk_acc[dt], ads, tf32::load_b_renamed<PASSES>(
+                                               qk + 8 * dt, LD, gq, t));
       }
     }
+    __syncthreads();  // the next iteration's copies overwrite this stage
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const size_t r = base + static_cast<size_t>(k0 + ty + 16 * a) * D;
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = base + static_cast<size_t>(key + 8 * h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[r + tx + 16 * c] = dk_acc[a][c];
-      dv[r + tx + 16 * c] = dv_acc[a][c];
+    for (int dt = 0; dt < DT; ++dt) {
+      const int c = 8 * dt + 2 * t;
+      *reinterpret_cast<float2*>(dk + r + c) =
+          make_float2(dk_acc[dt][2 * h] * scale, dk_acc[dt][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + r + c) =
+          make_float2(dv_acc[dt][2 * h], dv_acc[dt][2 * h + 1]);
     }
   }
 }
@@ -334,17 +364,39 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int PASSES>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const int* mask, const float* g, const float* m,
                        const float* l, const float* dd, float* dk, float* dv,
                        int bh, int n, float scale, cudaStream_t stream) {
   const size_t bytes = DkvLayout<D>::kBytes;
-  cudaError_t err = allow_smem(flash_dkv_kernel<D>, bytes);
+  cudaError_t err = allow_smem(flash_dkv_kernel<D, PASSES>, bytes);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<D><<<dim3(n / BK, bh), THREADS, bytes, stream>>>(
-      q, k, v, mask, g, m, l, dd, dk, dv, n, scale);
+  flash_dkv_kernel<D, PASSES>
+      <<<dim3(n / DKV_BK, bh), DKV_THREADS, bytes, stream>>>(
+          q, k, v, mask, g, m, l, dd, dk, dv, n, scale);
   return cudaGetLastError();
+}
+
+template <int PASSES>
+cudaError_t launch_dkv_d(int d, const float* q, const float* k,
+                         const float* v, const int* mask, const float* g,
+                         const float* m, const float* l, const float* dd,
+                         float* dk, float* dv, int bh, int n, float scale,
+                         cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_dkv<32, PASSES>(q, k, v, mask, g, m, l, dd, dk, dv, bh, n,
+                                    scale, stream);
+    case 64:
+      return launch_dkv<64, PASSES>(q, k, v, mask, g, m, l, dd, dk, dv, bh, n,
+                                    scale, stream);
+    case 128:
+      return launch_dkv<128, PASSES>(q, k, v, mask, g, m, l, dd, dk, dv, bh,
+                                     n, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 bool bad_shape(int bh, int n) {
@@ -389,13 +441,16 @@ extern "C" int edsnet_flash_attention_dq(const void* q, const void* k,
   }
 }
 
-// As above, with outputs dk, dv: [bh, n, d] f32.
+// As above, with outputs dk, dv: [bh, n, d] f32, all [bh, n, d] and [bh, n]
+// f32 tensors 16-byte aligned, and passes 1 or 3 (TF32 products per
+// product).
 extern "C" int edsnet_flash_attention_dkv(const void* q, const void* k,
                                           const void* v, const void* mask,
                                           const void* g, const void* m,
                                           const void* l, const void* dd,
                                           void* dk, void* dv, int bh, int n,
-                                          int d, float scale, void* stream) {
+                                          int d, int passes, float scale,
+                                          void* stream) {
   if (bad_shape(bh, n)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -408,16 +463,13 @@ extern "C" int edsnet_flash_attention_dkv(const void* q, const void* k,
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch_dkv<32>(qf, kf, vf, mi, gf, mf, lf, df, dkf, dvf, bh, n,
-                            scale, s);
-    case 64:
-      return launch_dkv<64>(qf, kf, vf, mi, gf, mf, lf, df, dkf, dvf, bh, n,
-                            scale, s);
-    case 128:
-      return launch_dkv<128>(qf, kf, vf, mi, gf, mf, lf, df, dkf, dvf, bh, n,
-                             scale, s);
+  switch (passes) {
+    case 1:
+      return launch_dkv_d<1>(d, qf, kf, vf, mi, gf, mf, lf, df, dkf, dvf, bh,
+                             n, scale, s);
+    case 3:
+      return launch_dkv_d<3>(d, qf, kf, vf, mi, gf, mf, lf, df, dkf, dvf, bh,
+                             n, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,10 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``kernels/_build/lib<name>-<hash>.so`` (a
-plain C interface, no PyTorch headers), keyed by the source's content so an
-edited source rebuilds.  The build runs at first use; ``build(*names)``
-starts one nvcc per missing library, all at once, and waits for them.
+plain C interface, no PyTorch headers), keyed by the content of the source
+and of the ``csrc/*.cuh`` headers, so an edited source or header rebuilds.
+The build runs at first use; ``build(*names)`` starts one nvcc per missing
+library, all at once, and waits for them.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()
+    """Keyed by the source, every header in csrc/ and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes() + headers
                             + " ".join(ARCH_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -3,12 +3,14 @@ its flash-kernel routing.
 
 Counterpart of edsnet_tpu/models/base.py:build_base_model (``attention``
 branch) and its ``--use-pallas`` tri-state, passed in as ``use_pallas``
-instead of set globally:
-- None (auto): deterministic passes on a CUDA device take the flash kernel
-  at precision "highest"; on the CPU the dense path runs, as JAX's auto
-  rule keeps the kernel off away from its accelerator;
-- True (--use-pallas): the flash route on any device, precision "default"
-  (on the CPU that is the kernel's plain twin);
+instead of set globally.  Each attention pass decides its route from its
+shapes alone, before any launch (``models/attention.py:flash_route``):
+- training passes always take the dense path;
+- None (auto): the flash kernel at precision "highest" on a CUDA device
+  when the head dim is one the kernels take, else the dense path (so
+  ``--num-head 4`` at F 1024, head dim 256, runs dense on the card);
+- True (--use-pallas): the flash route at precision "default"; on a CUDA
+  device a head dim the kernels do not take raises;
 - False (--no-pallas): always the dense path.
 """
 from __future__ import annotations
@@ -19,20 +21,12 @@ from torch import nn
 
 from edsnet_torch.models.attention import AttentionExtractor
 
-# Shortest sequence the flash route takes.  0 routes every deterministic
-# attention pass through the kernel: the JAX thresholds (1024 / 2048) come
-# from TPU timings and would leave it off for every eval bucket of a real
-# video.  A later PR sets this from the card's times in PERF.md.
-FLASH_MIN_LEN = 0
-
 
 def build_base_model(base_type: str, num_feature: int, num_head: int,
                      use_pallas: Optional[bool] = None) -> nn.Module:
     """(B, N, F) -> (B, N, F) mixing module by name."""
     if base_type == "attention":
-        return AttentionExtractor(num_head, num_feature,
-                                  use_flash=use_pallas,
-                                  flash_min_len=FLASH_MIN_LEN)
+        return AttentionExtractor(num_head, num_feature, use_flash=use_pallas)
     raise NotImplementedError(
         f"--base-model {base_type} is not ported yet (ROADMAP.md Queue A "
         f"items 3 and 11); this slice serves --base-model attention")
