@@ -9,19 +9,19 @@ Phases, each of which must pass (exit code 1 otherwise):
    for any kernel instance (registers and spills are printed);
 3. each kernel against its plain PyTorch twin on the card, at small shapes
    (every head dim the kernels take) and at the main path's largest shape.
-   The forward and dk/dv kernels run on the TF32 tensor cores at both
-   precisions: "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a
-   sum of up to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
+   All three kernels run on the TF32 tensor cores at both precisions:
+   "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a sum of up
+   to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
    roundoffs of TF32 (out and the log normaliser m + log l: m alone
    carries the rounding of the row's largest score, and l moves with it).
-   The dq kernel (f32 FMAs) and the gradients: max |got - want| <= tol *
-   max(1, max |want|), tol 1e-4, and 2^-8 for dk/dv at "default".  Beside
-   each reading, the error of the TF32 emulation of kernels/flash_attention
-   .py on the same inputs (flash_attention_tf32, flash_attention_dkv_tf32),
-   with sums rounded to nearest and toward zero: one pass's error is its
-   operand rounding, which both give; at three passes the card's
-   accumulator, rounding toward zero after each mma step, sets it, which
-   the second gives;
+   The gradients dq, dk and dv: max |got - want| <= tol * max(1,
+   max |want|), tol 1e-4 at "highest" and 2^-8 at "default".  Beside each
+   reading, the error of the TF32 emulation of kernels/flash_attention.py
+   on the same inputs (flash_attention_tf32, flash_attention_dq_tf32,
+   flash_attention_dkv_tf32), with sums rounded to nearest and toward
+   zero: one pass's error is its operand rounding, which both give; at
+   three passes the card's accumulator, rounding toward zero after each
+   mma step, sets it, which the second gives;
 4. the evaluate path at full width: the evaluate entry point's default
    configuration (anchor-based DSNet, attention backbone, F 1024, 8 heads,
    hidden 128, fc depth 7, scales 4 8 16 32) with seeded random weights on
@@ -48,12 +48,11 @@ Phases, each of which must pass (exit code 1 otherwise):
 7. times in CUDA events after warm-up, beside the card's name and power
    limit: predict per batch, the whole evaluation, a train step per bucket
    and its stages, an epoch, and each kernel against its bound, its twin
-   and the library call that computes the same function; the forward and
-   dk/dv at both precisions.  A kernel's bound is the larger of its bytes
-   over 3.35 TB/s and its operations times the TF32 passes (3 at
-   "highest", 1 at "default"; 3 for dq, whose redesign is next) over the
-   495 TFLOP/s dense TF32 rate; the f32 bound (67 TFLOP/s) is printed
-   beside it.
+   and the library call that computes the same function, at both
+   precisions.  A kernel's bound is the larger of its bytes over 3.35 TB/s
+   and its operations times the TF32 passes (3 at "highest", 1 at
+   "default") over the 495 TFLOP/s dense TF32 rate; the f32 bound (67
+   TFLOP/s) is printed beside it.
 
 The last lines are a JSON object describing each kernel, the nvidia-smi
 line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
@@ -219,11 +218,11 @@ def grad_limit_ok(got: torch.Tensor, want: torch.Tensor, tol: float = TOL
 
 
 def check_flash_backward(flash, phases: Phases
-                         ) -> Tuple[float, Dict[str, float]]:
-    """dq and dk/dv kernels vs the twins on the forward's cases, dk/dv at
-    both precisions; returns the largest abs error of dq and, per
-    precision, of dk/dv."""
-    worst_dq, worst_dkv = 0.0, {p: 0.0 for p in TOLS}
+                         ) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """dq and dk/dv kernels vs the twins on the forward's cases at both
+    precisions; returns, per precision, the largest abs error of dq and of
+    dk/dv."""
+    worst_dq, worst_dkv = {p: 0.0 for p in TOLS}, {p: 0.0 for p in TOLS}
     for i, (bh, n, d, lens) in enumerate(FLASH_CASES):
         q, k, v, mask = flash_case(flash, bh, n, d, lens, seed=10 + i)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)
@@ -232,29 +231,28 @@ def check_flash_backward(flash, phases: Phases
         dd = (g * out).sum(-1, keepdim=True)
         args = (q, k, v, mask, g, m, l, dd)
         label = f"({bh}, {n}, {d}) lens {sorted(set(lens))}"
-        dq = flash.flash_attention_dq(*args)
-        torch.cuda.synchronize()
-        ok, err = grad_limit_ok(dq, flash.flash_attention_dq_plain(*args))
-        worst_dq = max(worst_dq, err)
-        phases.check(ok, f"flash backward {label} dq")
-        errs = [f"dq abs {err:.3e}"]
-        want = flash.flash_attention_dkv_plain(*args)
+        want = (flash.flash_attention_dq_plain(*args),
+                *flash.flash_attention_dkv_plain(*args))
         for precision, tol in TOLS.items():
             passes = flash.PASSES[precision]
-            got = flash.flash_attention_dkv(*args, precision=precision)
+            got = (flash.flash_attention_dq(*args, precision=precision),
+                   *flash.flash_attention_dkv(*args, precision=precision))
             torch.cuda.synchronize()
-            for name, a, w in zip(("dk", "dv"), got, want):
+            errs = []
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
                 ok, err = grad_limit_ok(a, w, tol)
-                worst_dkv[precision] = max(worst_dkv[precision], err)
+                worst = worst_dq if name == "dq" else worst_dkv
+                worst[precision] = max(worst[precision], err)
                 limit = tol * max(1.0, float(w.abs().max()))
-                errs.append(f"{name} {precision} abs {err:.3e} (limit "
-                            f"{limit:.3e})")
+                errs.append(f"{name} abs {err:.3e} (limit {limit:.3e})")
                 phases.check(ok, f"flash backward {precision} {label} "
                                  f"{name} within {tol:g}")
-            errs.append("dk dv " + emulated_errors(
-                lambda **kw: flash.flash_attention_dkv_tf32(*args, passes,
-                                                            **kw), want))
-        print(f"    {'; '.join(errs)}")
+            errs.append("dq dk dv " + emulated_errors(
+                lambda **kw: (
+                    flash.flash_attention_dq_tf32(*args, passes, **kw),
+                    *flash.flash_attention_dkv_tf32(*args, passes, **kw)),
+                want))
+            print(f"    {precision}: {'; '.join(errs)}")
     return worst_dq, worst_dkv
 
 
@@ -538,32 +536,29 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=attn_mask)
     # per kernel: operations per BH*N^2*D, [N, D] and [N] tensors read once
-    # or written once, the call at a precision, its twin, the library call
-    # and the precisions it takes (dq: f32 FMAs, bound at 3 passes)
+    # or written once, the call at a precision, its twin and the library
+    # call
     rows = (
         ("flash_attention_fwd", 4, 4, 3,
          lambda p: flash.flash_attention_fwd(q, k, v, mask, precision=p),
          lambda: flash.flash_attention_plain(q, k, v, mask),
          lambda: torch.nn.functional.scaled_dot_product_attention(
              q[None], k[None], v[None], attn_mask=attn_mask),
-         "scaled_dot_product_attention", tuple(TOLS)),
+         "scaled_dot_product_attention"),
         ("flash_attention_dq", 6, 5, 4,
-         lambda p: flash.flash_attention_dq(*bwd_args),
+         lambda p: flash.flash_attention_dq(*bwd_args, precision=p),
          lambda: flash.flash_attention_dq_plain(*bwd_args),
          lambda: torch.autograd.grad(lib_out, (lq,), g[None],
                                      retain_graph=True),
-         "autograd.grad of q through scaled_dot_product_attention",
-         ("highest",)),
+         "autograd.grad of q through scaled_dot_product_attention"),
         ("flash_attention_dkv", 8, 6, 4,
          lambda p: flash.flash_attention_dkv(*bwd_args, precision=p),
          lambda: flash.flash_attention_dkv_plain(*bwd_args),
          lambda: torch.autograd.grad(lib_out, (lk, lv), g[None],
                                      retain_graph=True),
-         "autograd.grad of k, v through scaled_dot_product_attention",
-         tuple(TOLS)))
+         "autograd.grad of k, v through scaled_dot_product_attention"))
     timing = {}
-    for name, n_ops, n_mats, n_rows, call, plain, library, lib_name, \
-            precisions in rows:
+    for name, n_ops, n_mats, n_rows, call, plain, library, lib_name in rows:
         ops = n_ops * bh * n * n * d
         io_ms = 4.0 * bh * (n_mats * n * d + n_rows * n) \
             / HBM_BYTES_PER_S * 1e3
@@ -572,7 +567,7 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
             "plain_ms": cuda_ms(plain, iters=5),
             "library_ms": cuda_ms(library),
             "f32_bound_ms": max(f32_ms, io_ms)}
-        for precision in precisions:
+        for precision in TOLS:
             passes = flash.PASSES[precision]
             ops_ms = passes * ops / TF32_PEAK_FLOPS * 1e3
             t[precision] = {
@@ -795,7 +790,8 @@ def main() -> int:
             ("flash_attention_fwd", "flash_attention_fwd.cu", 58, launches,
              fwd_err["highest"], fwd_err["default"]),
             ("flash_attention_dq", "flash_attention_bwd.cu", 155,
-             bwd_launches["flash_attention_dq"], dq_err, None),
+             bwd_launches["flash_attention_dq"], dq_err["highest"],
+             dq_err["default"]),
             ("flash_attention_dkv", "flash_attention_bwd.cu", 202,
              bwd_launches["flash_attention_dkv"], dkv_err["highest"],
              dkv_err["default"])):
@@ -808,11 +804,9 @@ def main() -> int:
             "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["highest"]["bound_ms"],
             "bound_by": t["highest"]["bound_by"],
-            "library_ms": t["library_ms"]}
-        if err_default is not None:
-            entry["default"] = {"ms": t["default"]["ms"],
-                                "max_abs_err": err_default,
-                                "bound_ms": t["default"]["bound_ms"]}
+            "library_ms": t["library_ms"],
+            "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
+                        "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,15 +18,40 @@
 // 4*(5*N*D + 3*N) and 4*(7*N*D + 3*N) bytes; at N = 2304, D = 128 both are
 // bound by operations.
 //
-// dq runs its products as f32 FMAs (ceiling 67 TFLOP/s): one block per
-// (bh, 64-row q tile) loops over 64-key tiles, keeping the 64 x D
-// accumulator in registers and feeding 4x4 register tiles from shared
-// memory padded by one float (about 149 KB at D = 128).
-//
-// dk/dv runs all four products on the TF32 tensor cores (mma.sync
+// Both kernels run every product on the TF32 tensor cores (mma.sync
 // m16n8k8, csrc/tf32_mma.cuh), at PASSES = 3 for precision "highest" and 1
 // for "default": at (BH, N, D) = (32, 2304, 128) and 495 TFLOP/s dense
-// TF32 that bounds it at 1.054 and 0.351 ms.  Design:
+// TF32 that bounds dq at 0.791 and 0.264 ms, dk/dv at 1.054 and 0.351 ms.
+//
+// dq design:
+//   - one block of 4 warps per (bh, 64-row q tile); each warp owns 16 q
+//     rows and keeps dq (16 x D) in accumulator registers while the block
+//     loops over key tiles (32 keys at one pass, 16 at three) in a fixed
+//     order;
+//   - per key tile each warp forms S = q k^T and dP = g v^T, turns them
+//     into dS in registers from the rows' m, l and Dd (loaded once), and
+//     feeds dS straight into dq += dS k as the A fragment under a renamed k
+//     index: no dS tile touches shared memory;
+//   - the warp's q, an A operand of every key tile, stays in registers as
+//     fragments (64 per thread at D = 128) for the whole loop; g stays in
+//     shared memory; k, v and the mask stream in with 16-byte cp.async.cg
+//     in two stages, rows padded to D + 4 floats so every fragment load of
+//     a warp touches 32 distinct banks;
+//   - operands are rounded to TF32 once where that pays: each k tile when
+//     it lands (its 4 warps read it twice each, for S and for dS k; each
+//     thread rounds the chunks it copied, then one barrier; at three passes
+//     k's small part goes to a buffer that the next tile's rounding
+//     overwrites after the loop's last barrier), and g before the loop (in
+//     place at one pass; at three its small part goes to a buffer of its
+//     own).  q is rounded as it is loaded at one pass and split at each
+//     use at three, where its small parts would need 64 more registers.  v
+//     (one read per warp) and dS (made in registers) are split at use;
+//   - shared memory at D = 128: 101.6 KB at one pass and 110 KB at three;
+//     registers (226 and 233 a thread) and shared memory allow two blocks
+//     (8 warps) on each SM.
+//   tools/dq_variants.py times each of these choices undone (PERF.md).
+//
+// dk/dv design:
 //   - one block of 4 warps per (bh, 64-key tile); each warp owns 16 keys and
 //     keeps dk and dv (16 x D each) in accumulator registers while the block
 //     loops over 16-row q tiles in a fixed order;
@@ -53,140 +78,187 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
+constexpr int DQ_WARPS = 4;
+constexpr int DQ_THREADS = 32 * DQ_WARPS;
+constexpr int DQ_BQ = 16 * DQ_WARPS;  // q rows per block, 16 per warp
+constexpr int DQ_STAGES = 2;
 constexpr float NEG = -1e30f;
 constexpr float NEG2 = -2e30f;
 
-__device__ __forceinline__ float masked_score(float s, int km) {
-  return km > 0 ? s : (km == 0 ? NEG : NEG2);
+// Keys per tile of the dq kernel: 32 at one pass; 16 at three, where
+// 32-key tiles and their small parts take 152 KB, one block per SM.
+template <int PASSES>
+constexpr int dq_bk() {
+  return PASSES == 1 ? 32 : 16;
 }
 
-template <int D>
+// The dq kernel's shared memory, in floats: g (and at 3 passes its small
+// part), DQ_STAGES stages of k and v, k's small part (3 passes), then the
+// stages' masks.
+template <int D, int PASSES>
 struct DqLayout {
-  static constexpr int LD = D + 1;   // q, g, k, v rows
-  static constexpr int LDS = BK + 1; // dS tile rows
-  static constexpr size_t kFloats = 4 * 64 * LD + BQ * LDS;
-  static constexpr size_t kBytes = kFloats * sizeof(float) + BK * sizeof(int);
+  static constexpr int BK = dq_bk<PASSES>();
+  static constexpr int LD = D + 4;        // padded row stride, floats
+  static constexpr int kG = DQ_BQ * LD;   // the block's g rows
+  static constexpr int kKV = BK * LD;     // one k or v tile
+  static constexpr int kParts = PASSES == 3 ? 2 : 1;
+  static constexpr int kStages = kParts * kG;
+  static constexpr int kKSmall = kStages + DQ_STAGES * 2 * kKV;
+  static constexpr int kMask = kKSmall + (kParts - 1) * kKV;
+  static constexpr size_t kBytes =
+      kMask * sizeof(float) + DQ_STAGES * BK * sizeof(int);
 };
 
-// dq for rows q0 .. q0+63 of one (batch*head).  Thread (ty, tx) owns rows
-// ty + 16a and, in the score tile, keys tx + 16b; in the accumulator,
-// columns tx + 16c.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// dq for rows q0 .. q0+63 of one (batch*head).  Warp w owns rows
+// q0 + 16w + g and q0 + 16w + g + 8 (g = lane / 4); in its S and dP
+// accumulators, element e of tile nt is key 8 nt + 2t + (e & 1) of the
+// current key tile (t = lane % 4).
+template <int D, int PASSES>
+__global__ void __launch_bounds__(DQ_THREADS, 2)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ mask,
                 const float* __restrict__ g, const float* __restrict__ m_in,
                 const float* __restrict__ l_in, const float* __restrict__ dd_in,
                 float* __restrict__ dq, int n, float scale) {
-  using L = DqLayout<D>;
-  constexpr int DC = D / 16;
+  using L = DqLayout<D, PASSES>;
+  constexpr int BK = L::BK;
+  constexpr int LD = L::LD;
+  constexpr int NT = BK / 8;  // 8-key column tiles of S, k steps of dS k
+  constexpr int DT = D / 8;   // 8-wide column tiles of dq, k steps of S
+  constexpr bool kOnePass = PASSES == 1;
 
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* gs = qs + BQ * L::LD;
-  float* ks = gs + BQ * L::LD;
-  float* vs = ks + BK * L::LD;
-  float* dss = vs + BK * L::LD;
-  int* ms = reinterpret_cast<int*>(dss + BQ * L::LDS);
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;
+  float* kvs = smem + L::kStages;  // stage s: k at kvs + 2 s kKV, v after it
+  int* ms = reinterpret_cast<int*>(smem + L::kMask);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * DQ_BQ;
   const size_t base = static_cast<size_t>(bh) * n * D;
   const size_t row_base = static_cast<size_t>(bh) * n;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const size_t gi = base + static_cast<size_t>(q0 + r) * D + c;
-    qs[r * L::LD + c] = q[gi] * scale;
-    gs[r * L::LD + c] = g[gi];
-  }
-  float m_r[4], l_r[4], dd_r[4], acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const size_t r = row_base + q0 + ty + 16 * a;
-    m_r[a] = m_in[r];
-    l_r[a] = l_in[r];
-    dd_r[a] = dd_in[r];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  }
+  auto load_kv = [&](int stage, int k0) {
+    float* ks = kvs + stage * 2 * L::kKV;
+    const size_t at = base + static_cast<size_t>(k0) * D;
+    tf32::copy_rows<D, DQ_THREADS>(ks, LD, k + at, BK, tid);
+    tf32::copy_rows<D, DQ_THREADS>(ks + L::kKV, LD, v + at, BK, tid);
+    if (tid < BK / 4)
+      tf32::cp_async16(ms + stage * BK + 4 * tid,
+                       mask + row_base + k0 + 4 * tid);
+  };
+  const size_t at = base + static_cast<size_t>(q0) * D;
+  tf32::copy_rows<D, DQ_THREADS>(gs, LD, g + at, DQ_BQ, tid);
+  load_kv(0, 0);
+  tf32::cp_async_commit();
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's ks/vs/dss reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const size_t gi = base + static_cast<size_t>(k0 + r) * D + c;
-      ks[r * L::LD + c] = k[gi];
-      vs[r * L::LD + c] = v[gi];
-    }
-    if (tid < BK) ms[tid] = mask[row_base + k0 + tid];
+  // the warp's q as A fragments in registers for the whole key loop,
+  // rounded once at one pass, split at each use at three
+  float qa[DT][4];
+  const float* qw = q + at + static_cast<size_t>(warp * 16) * D;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    const float* p = qw + 8 * kk + t;
+    const float x[4] = {p[gq * D], p[(gq + 8) * D], p[gq * D + 4],
+                        p[(gq + 8) * D + 4]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qa[kk][i] = kOnePass ? __uint_as_float(tf32::cvt_rna(x[i])) : x[i];
+  }
+  auto frag_q = [&](int kk) {
+    if constexpr (kOnePass)
+      return tf32::as_rounded(qa[kk]);
+    else
+      return tf32::split<PASSES>(qa[kk]);
+  };
+  // the rows' m, l and Dd, fixed for the whole key loop
+  float m_r[2], l_r[2], dd_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = row_base + q0 + warp * 16 + gq + 8 * h;
+    m_r[h] = m_in[r];
+    l_r[h] = l_in[r];
+    dd_r[h] = dd_in[r];
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  const float* gw = gs + warp * 16 * LD;
+
+  const int n_tiles = n / BK;
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_kv((j + 1) % DQ_STAGES, (j + 1) * BK);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();  // tile j (and g) have landed
+    float* ks = kvs + (j % DQ_STAGES) * 2 * L::kKV;
+    const float* vs = ks + L::kKV;
+    const int k_small = static_cast<int>(smem + L::kKSmall - ks);
+    // round once what the block reads most: g for the whole loop, each k
+    // tile (8 warp reads) as it lands
+    if (j == 0)
+      tf32::round_rows<PASSES, D, DQ_THREADS>(gs, LD, L::kG, DQ_BQ, tid);
+    tf32::round_rows<PASSES, D, DQ_THREADS>(ks, LD, k_small, BK, tid);
     __syncthreads();
+    const int* mk = ms + (j % DQ_STAGES) * BK;
 
-    // s = (q * scale) k^T and dP = g v^T for rows ty + 16a, keys tx + 16b
-    float s[4][4], dp[4][4];
+    // S = q k^T and dP = g v^T for the warp's 16 rows, the tile's keys
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], ga[4], kb[4], vb[4];
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = qs[(ty + 16 * a) * L::LD + d];
-        ga[a] = gs[(ty + 16 * a) * L::LD + d];
-      }
+    for (int kk = 0; kk < DT; ++kk) {
+      const auto aq = frag_q(kk);
+      const auto ag =
+          tf32::load_a_rounded<PASSES>(gw + 8 * kk, L::kG, LD, gq, t);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        kb[b] = ks[(tx + 16 * b) * L::LD + d];
-        vb[b] = vs[(tx + 16 * b) * L::LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-          dp[a][b] = fmaf(ga[a], vb[b], dp[a][b]);
-        }
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int km = ms[tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p = expf(masked_score(s[a][b], km) - m_r[a]) / l_r[a];
-        dss[(ty + 16 * a) * L::LDS + tx + 16 * b] =
-            km > 0 ? p * (dp[a][b] - dd_r[a]) : 0.f;
+      for (int nt = 0; nt < NT; ++nt) {
+        const int off = 8 * nt * LD + 8 * kk;
+        tf32::mma<PASSES>(s[nt], aq, tf32::load_bt_rounded<PASSES>(
+                                         ks + off, k_small, LD, gq, t));
+        tf32::mma<PASSES>(dp[nt], ag,
+                          tf32::load_bt<PASSES>(vs + off, LD, gq, t));
       }
     }
-    __syncthreads();
 
-    // acc += dS k for rows ty + 16a, columns tx + 16c
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float da[4];
+    // dS in place of S (element e: row gq + 8 (e >> 1), key column c)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = dss[(ty + 16 * a) * L::LDS + j];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kk = ks[j * L::LD + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(da[a], kk, acc[a][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int km = mk[8 * nt + 2 * t + (e & 1)];
+        const float sc = km > 0 ? s[nt][e] * scale : (km == 0 ? NEG : NEG2);
+        const float p = expf(sc - m_r[h]) / l_r[h];
+        s[nt][e] = km > 0 ? p * (dp[nt][e] - dd_r[h]) : 0.f;
       }
+
+    // dq += dS k, dS straight from the accumulator as the A fragment
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const auto ads = tf32::acc_as_a<PASSES>(s[kk]);
+      const float* kk_rows = ks + 8 * kk * LD;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        tf32::mma<PASSES>(acc[dt], ads, tf32::load_b_renamed_rounded<PASSES>(
+                                            kk_rows + 8 * dt, k_small, LD, gq,
+                                            t));
     }
+    __syncthreads();  // the next iteration's copies overwrite this stage
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float* o = dq + base + static_cast<size_t>(q0 + ty + 16 * a) * D;
+  for (int h = 0; h < 2; ++h) {
+    float* o = dq + base + static_cast<size_t>(q0 + warp * 16 + gq + 8 * h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[a][c] * scale;
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(o + 8 * dt + 2 * t) =
+          make_float2(acc[dt][2 * h] * scale, acc[dt][2 * h + 1] * scale);
   }
 }
 
@@ -351,17 +423,39 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
+template <int D, int PASSES>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const int* mask, const float* g, const float* m,
                       const float* l, const float* dd, float* dq, int bh,
                       int n, float scale, cudaStream_t stream) {
-  const size_t bytes = DqLayout<D>::kBytes;
-  cudaError_t err = allow_smem(flash_dq_kernel<D>, bytes);
+  const size_t bytes = DqLayout<D, PASSES>::kBytes;
+  cudaError_t err = allow_smem(flash_dq_kernel<D, PASSES>, bytes);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<D><<<dim3(n / BQ, bh), THREADS, bytes, stream>>>(
-      q, k, v, mask, g, m, l, dd, dq, n, scale);
+  flash_dq_kernel<D, PASSES>
+      <<<dim3(n / DQ_BQ, bh), DQ_THREADS, bytes, stream>>>(
+          q, k, v, mask, g, m, l, dd, dq, n, scale);
   return cudaGetLastError();
+}
+
+template <int PASSES>
+cudaError_t launch_dq_d(int d, const float* q, const float* k,
+                        const float* v, const int* mask, const float* g,
+                        const float* m, const float* l, const float* dd,
+                        float* dq, int bh, int n, float scale,
+                        cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_dq<32, PASSES>(q, k, v, mask, g, m, l, dd, dq, bh, n,
+                                   scale, stream);
+    case 64:
+      return launch_dq<64, PASSES>(q, k, v, mask, g, m, l, dd, dq, bh, n,
+                                   scale, stream);
+    case 128:
+      return launch_dq<128, PASSES>(q, k, v, mask, g, m, l, dd, dq, bh, n,
+                                    scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int D, int PASSES>
@@ -400,21 +494,22 @@ cudaError_t launch_dkv_d(int d, const float* q, const float* k,
 }
 
 bool bad_shape(int bh, int n) {
-  return bh <= 0 || bh > 65535 || n <= 0 || n % BQ;
+  return bh <= 0 || bh > 65535 || n <= 0 || n % DQ_BQ || n % DKV_BK;
 }
 
 }  // namespace
 
 // q, k, v, g, dq: [bh, n, d] f32 contiguous; mask: [bh, n] int32;
-// m, l, dd: [bh, n] f32.  n must be a multiple of 64 and d one of 32, 64,
-// 128.  Launches on `stream` and returns the launch's cudaError_t (0 =
-// success).
+// m, l, dd: [bh, n] f32; all 16-byte aligned.  n must be a multiple of 64,
+// d one of 32, 64, 128 and passes 1 or 3 (TF32 products per product).
+// Launches on `stream` and returns the launch's cudaError_t (0 = success).
 extern "C" int edsnet_flash_attention_dq(const void* q, const void* k,
                                          const void* v, const void* mask,
                                          const void* g, const void* m,
                                          const void* l, const void* dd,
                                          void* dq, int bh, int n, int d,
-                                         float scale, void* stream) {
+                                         int passes, float scale,
+                                         void* stream) {
   if (bad_shape(bh, n)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -426,16 +521,13 @@ extern "C" int edsnet_flash_attention_dq(const void* q, const void* k,
   const auto* df = static_cast<const float*>(dd);
   auto* out = static_cast<float*>(dq);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch_dq<32>(qf, kf, vf, mi, gf, mf, lf, df, out, bh, n, scale,
-                           s);
-    case 64:
-      return launch_dq<64>(qf, kf, vf, mi, gf, mf, lf, df, out, bh, n, scale,
-                           s);
-    case 128:
-      return launch_dq<128>(qf, kf, vf, mi, gf, mf, lf, df, out, bh, n, scale,
-                            s);
+  switch (passes) {
+    case 1:
+      return launch_dq_d<1>(d, qf, kf, vf, mi, gf, mf, lf, df, out, bh, n,
+                            scale, s);
+    case 3:
+      return launch_dq_d<3>(d, qf, kf, vf, mi, gf, mf, lf, df, out, bh, n,
+                            scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -146,6 +146,55 @@ __device__ __forceinline__ Split<PASSES, 4> acc_as_a(const float (&c)[4]) {
   return split<PASSES>(x);
 }
 
+// N registers that hold TF32 values already, as a one-pass operand.
+template <int N>
+__device__ __forceinline__ Split<1, N> as_rounded(const float (&x)[N]) {
+  Split<1, N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s.big[i] = __float_as_uint(x[i]);
+  return s;
+}
+
+// Operands rounded once.  A tile that many products read can be rounded
+// once in shared memory instead of at every fragment load: each f32 is
+// replaced in place by its big part and, at 3 passes, its small part is
+// stored `small` floats further on.  The loads below then read TF32 values
+// with no conversion, in the fragment layouts of load_a, load_bt and
+// load_b_renamed.
+template <int PASSES, int N>
+__device__ __forceinline__ Split<PASSES, N> gather(const float* p, int small,
+                                                   const int (&off)[N]) {
+  Split<PASSES, N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.big[i] = __float_as_uint(p[off[i]]);
+    if constexpr (PASSES == 3)
+      s.small[i] = __float_as_uint(p[small + off[i]]);
+  }
+  return s;
+}
+
+template <int PASSES>
+__device__ __forceinline__ Split<PASSES, 4> load_a_rounded(const float* p,
+                                                           int small, int ld,
+                                                           int g, int t) {
+  return gather<PASSES>(p, small, {g * ld + t, (g + 8) * ld + t,
+                                   g * ld + t + 4, (g + 8) * ld + t + 4});
+}
+
+template <int PASSES>
+__device__ __forceinline__ Split<PASSES, 2> load_bt_rounded(const float* p,
+                                                            int small, int ld,
+                                                            int g, int t) {
+  return gather<PASSES>(p, small, {g * ld + t, g * ld + t + 4});
+}
+
+template <int PASSES>
+__device__ __forceinline__ Split<PASSES, 2> load_b_renamed_rounded(
+    const float* p, int small, int ld, int g, int t) {
+  return gather<PASSES>(p, small, {2 * t * ld + g, (2 * t + 1) * ld + g});
+}
+
 // 16-byte copy global -> shared that bypasses L1 (cp.async.cg).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -174,6 +223,30 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src,
   for (int c = tid; c < rows * kChunks; c += threads) {
     const int r = c / kChunks, col = (c % kChunks) * 4;
     cp_async16(dst + r * ld + col, src + static_cast<size_t>(r) * width + col);
+  }
+}
+
+// Round in place the chunks that copy_rows<width, threads> gave this
+// thread (big in place, small `small` floats further on at 3 passes).  A
+// thread reads only what its own copies wrote, so it needs its
+// cp_async_wait and no barrier before; one barrier after makes the rounded
+// tile visible to the block.
+template <int PASSES, int width, int threads>
+__device__ __forceinline__ void round_rows(float* tile, int ld, int small,
+                                           int rows, int tid) {
+  constexpr int kChunks = width / 4;
+  for (int c = tid; c < rows * kChunks; c += threads) {
+    float* p = tile + (c / kChunks) * ld + (c % kChunks) * 4;
+    const float4 x4 = *reinterpret_cast<const float4*>(p);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    const auto s = split<PASSES>(x);
+    *reinterpret_cast<float4*>(p) =
+        make_float4(__uint_as_float(s.big[0]), __uint_as_float(s.big[1]),
+                    __uint_as_float(s.big[2]), __uint_as_float(s.big[3]));
+    if constexpr (PASSES == 3)
+      *reinterpret_cast<float4*>(p + small) = make_float4(
+          __uint_as_float(s.small[0]), __uint_as_float(s.small[1]),
+          __uint_as_float(s.small[2]), __uint_as_float(s.small[3]));
   }
 }
 

@@ -8,18 +8,17 @@ and ``_dq_kernel`` / ``_dkv_kernel`` (``_flash_backward``) with the two
 kernels of ``csrc/flash_attention_bwd.cu``.  Each source's header notes its
 bound on the card (operations at the main path's shapes) and its design.
 
-Precision.  The forward and dk/dv kernels multiply on the TF32 tensor
-cores.  ``precision="highest"`` runs each product as three TF32 passes
-(3xTF32: every f32 operand split into a TF32 ``big`` part and a TF32
-``small`` remainder, summing small*big + big*small + big*big), which keeps
-an error near f32's; ``"default"`` runs one TF32 pass (operands rounded to
-10 mantissa bits).  ``tf32_round``, ``tf32_matmul`` and the two kernels'
+Precision.  All three kernels multiply on the TF32 tensor cores.
+``precision="highest"`` runs each product as three TF32 passes (3xTF32:
+every f32 operand split into a TF32 ``big`` part and a TF32 ``small``
+remainder, summing small*big + big*small + big*big), which keeps an error
+near f32's; ``"default"`` runs one TF32 pass (operands rounded to 10
+mantissa bits).  ``tf32_round``, ``tf32_matmul`` and the kernels'
 computations built on them (``flash_attention_tf32``,
-``flash_attention_dkv_tf32``) repeat that arithmetic in plain PyTorch for
-the tests and ``chip_smoke.py``; the port's paths never call them.  The
-dq kernel uses f32 FMAs at
-either precision, and the twins are exact f32 and ignore ``precision``, as
-JAX's interpret mode does on the CPU.
+``flash_attention_dq_tf32``, ``flash_attention_dkv_tf32``) repeat that
+arithmetic in plain PyTorch for the tests and ``chip_smoke.py``; the
+port's paths never call them.  The twins are exact f32 and ignore
+``precision``, as JAX's interpret mode does on the CPU.
 
 Semantics, shared by kernel and twin: scores ``(q * D^-1/2) k^T``; key mask
 levels 1 = attend, 0 = real but masked (scored -1e30), -1 = time-axis pad
@@ -109,6 +108,21 @@ def flash_attention_tf32(q, k, v, mask, passes: int,
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     return tf32_matmul(p, v, passes, toward_zero) / l, m, l
+
+
+def flash_attention_dq_tf32(q, k, v, mask, g, m, l, dd, passes: int,
+                            toward_zero: bool = False):
+    """The dq kernel's arithmetic in plain PyTorch, for the tests: S = q k^T
+    and dP = g v^T, then the scale, the mask, P and dS, and dq = dS k *
+    scale, all three products in TF32 passes -> dq."""
+    s = tf32_matmul(q, k.transpose(1, 2), passes, toward_zero)
+    km = mask[:, None, :]
+    s = torch.where(km > 0, s * q.shape[-1] ** -0.5,
+                    torch.where(km == 0, NEG, 2 * NEG))
+    p = torch.exp(s - m) / l
+    dp = tf32_matmul(g, v.transpose(1, 2), passes, toward_zero)
+    ds = torch.where(km > 0, p * (dp - dd), 0.0)
+    return tf32_matmul(ds, k, passes, toward_zero) * q.shape[-1] ** -0.5
 
 
 def flash_attention_dkv_tf32(q, k, v, mask, g, m, l, dd, passes: int,
@@ -220,7 +234,7 @@ def _passes(name: str, precision: str) -> int:
 # C entry point -> (source in csrc/, pointer arguments, takes a pass count)
 _ENTRY_POINTS = {
     "edsnet_flash_attention_fwd": ("flash_attention_fwd", 7, True),
-    "edsnet_flash_attention_dq": ("flash_attention_bwd", 9, False),
+    "edsnet_flash_attention_dq": ("flash_attention_bwd", 9, True),
     "edsnet_flash_attention_dkv": ("flash_attention_bwd", 10, True),
 }
 
@@ -284,17 +298,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_dq(q, k, v, mask, g, m, l, dd) -> torch.Tensor:
+def flash_attention_dq(q, k, v, mask, g, m, l, dd, *,
+                       precision: str = "highest") -> torch.Tensor:
     """dq kernel wrapper: q/k/v/g [BH, N, D] f32, mask [BH, N] int32, the
-    forward's m, l and dd = rowsum(g * out), each [BH, N, 1] f32 -> dq."""
+    forward's m, l and dd = rowsum(g * out), each [BH, N, 1] f32 -> dq, at
+    3 TF32 passes (``precision="highest"``) or 1 (``"default"``)."""
+    name = "flash_attention_dq"
+    passes = _passes(name, precision)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, mask, g, m, l, dd)
-    name = "flash_attention_dq"
     _cuda_only(name, q)
     _check(name, q, mask, {"q": q, "k": k, "v": v, "g": g},
            {"m": m, "l": l, "dd": dd})
     dq = torch.empty_like(q)
-    _launch(name, "edsnet_flash_attention_dq", (q, k, v, mask, g, m, l, dd, dq))
+    _launch(name, "edsnet_flash_attention_dq",
+            (q, k, v, mask, g, m, l, dd, dq), passes)
     flash_attention_dq.launches += 1
     return dq
 
@@ -332,15 +350,16 @@ def flash_attention_bwd(q, k, v, mask, o, m, l, g, *,
     """The backward: dd = rowsum(g * o) as a torch op, then the dq kernel
     and the dk/dv kernel at ``precision`` (their twins for CPU tensors)."""
     dd = _rowsum_go(g, o)
-    dq = flash_attention_dq(q, k, v, mask, g, m, l, dd)
+    dq = flash_attention_dq(q, k, v, mask, g, m, l, dd, precision=precision)
     return (dq, *flash_attention_dkv(q, k, v, mask, g, m, l, dd,
                                      precision=precision))
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flat [BH, N_pad, D] attention whose forward is the forward kernel and
-    whose backward is the two backward kernels; the mask gets no gradient.
-    (The TPU package's ``_flash`` custom_vjp.)"""
+    whose backward is the two backward kernels, all three at the forward's
+    ``precision``; the mask gets no gradient.  (The TPU package's
+    ``_flash`` custom_vjp.)"""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, precision):
@@ -367,7 +386,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Pads N to a multiple of 64 with pad keys at mask level -1, broadcasts
     the mask over heads and crops the output; autograd differentiates the
     pad and the crop around ``_FlashAttention``.  ``precision`` sets the
-    TF32 passes of the forward and dk/dv kernels: 3 at "highest", 1 at
+    TF32 passes of the forward, dq and dk/dv kernels: 3 at "highest", 1 at
     "default" (JAX's default, one native pass)."""
     _passes("flash_attention", precision)
     b, h, n, d = q.shape

@@ -5,7 +5,10 @@ twins of the dq and dk/dv kernels here) vs ``jax.grad`` of the edsnet_tpu
 of tests/models/test_flash_attention.py, to rtol 1e-4 / atol 1e-4 as the
 JAX tests hold their kernels to their oracle.  The twin of the whole
 backward is also held against autograd of a dense masked oracle (atol
-1e-5).  The CUDA kernels vs the twins are in test_torch_flash_kernel.py."""
+1e-5).  The dq path at precision "highest" is also held directly against
+``_flash_backward`` (the Pallas ``_dq_kernel`` in interpret mode): the
+port's dq wrapper and the 3-pass TF32 emulation of its kernel.  The CUDA
+kernels vs the twins are in test_torch_flash_kernel.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,6 +79,31 @@ def test_gradients_match_jax(case):
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}",
                                    **TOL)
+
+
+@pytest.mark.parametrize("bh,n,d,lens", [(2, 128, 64, [128, 77]),
+                                         (3, 192, 32, [0, 150, 192])])
+def test_dq_matches_jax_flash_backward_at_highest(bh, n, d, lens):
+    rng = np.random.RandomState(bh + n + d)
+    q, k, v, g = (rng.randn(bh, n, d).astype(np.float32) for _ in range(4))
+    mask = np.where(np.arange(n)[None, :] < np.asarray(lens)[:, None], 1, 0
+                    ).astype(np.int32)
+    mask[:, n - 9:] = -1     # time-axis pad keys
+    jm = jnp.asarray(mask[:, None, :])
+    out, m, l = jax_flash._flash_forward(
+        *(jnp.asarray(t) for t in (q, k, v)), jm, 64, 64, "highest")
+    want, _, _ = jax_flash._flash_backward(
+        *(jnp.asarray(t) for t in (q, k, v)), jm, out, m, l, jnp.asarray(g),
+        64, 64, "highest")
+    tq, tk, tv, tg, to, tm, tl = (torch.from_numpy(np.array(t))
+                                  for t in (q, k, v, g, out, m, l))
+    args = (tq, tk, tv, torch.from_numpy(mask), tg, tm, tl,
+            (tg * to).sum(-1, keepdim=True))
+    for name, got in (
+            ("wrapper", flash.flash_attention_dq(*args, precision="highest")),
+            ("3-pass emulation", flash.flash_attention_dq_tf32(*args, 3))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=name, **TOL)
 
 
 def _dense_oracle(q, k, v, mask):

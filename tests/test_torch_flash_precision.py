@@ -1,8 +1,9 @@
 """The arithmetic of the TF32 tensor-core kernels, emulated on the CPU.
 
-``tf32_round``, ``tf32_matmul``, ``flash_attention_tf32`` and
-``flash_attention_dkv_tf32`` (edsnet_torch/kernels/flash_attention.py)
-repeat the operand arithmetic of the forward and dk/dv kernels: every
+``tf32_round``, ``tf32_matmul``, ``flash_attention_tf32``,
+``flash_attention_dq_tf32`` and ``flash_attention_dkv_tf32``
+(edsnet_torch/kernels/flash_attention.py) repeat the operand arithmetic of
+the forward, dq and dk/dv kernels: every
 operand rounded to TF32 (to nearest, ties away from zero), then 3 products
 (precision "highest") or 1 ("default").  They sum those products as an
 f32 matmul does, rounded to nearest, unless ``toward_zero`` asks for the
@@ -119,19 +120,52 @@ def test_emulated_dkv_within_card_tolerance(passes, tol):
         assert err <= tol * max(1.0, float(w.abs().max())), (name, err)
 
 
-@pytest.mark.parametrize("bh,n,d,lens", [
-    (4, 192, 64, [150, 150, 100, 100]), (2, 128, 128, [100, 100]),
-    (2, 256, 128, [0, 256]), (4, 128, 32, [128, 100, 64, 0])])
-def test_emulated_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
-                                                                 lens):
-    """chip_smoke.py's small cases at "default": short rows (100-150 real
-    keys) concentrate P, which gives one pass its largest dk error there
-    (PERF.md), still inside 2^-8 * max(1, max|want|)."""
+@pytest.mark.parametrize("passes,tol", [(3, 1e-5), (1, TOL_DEFAULT)],
+                         ids=["highest", "default"])
+def test_emulated_dq_within_card_tolerance(passes, tol):
+    q, k, v, g, mask = _inputs(10)
+    out, m, l = flash.flash_attention_plain(q, k, v, mask)
+    dd = (g * out).sum(-1, keepdim=True)
+    got = flash.flash_attention_dq_tf32(q, k, v, mask, g, m, l, dd, passes)
+    want = flash.flash_attention_dq_plain(q, k, v, mask, g, m, l, dd)
+    err = float((got - want).abs().max())
+    assert err <= tol * max(1.0, float(want.abs().max())), err
+    # the fully-masked row has no dS, so no dq
+    assert not bool(got[2].any()) and not bool(want[2].any())
+
+
+SMOKE_SHAPES = [(4, 192, 64, [150, 150, 100, 100]), (2, 128, 128, [100, 100]),
+                (2, 256, 128, [0, 256]), (4, 128, 32, [128, 100, 64, 0])]
+
+
+def _smoke_inputs(bh, n, d, lens):
     rng = np.random.RandomState(n + d)
     q, k, v, g = (torch.from_numpy(rng.randn(bh, n, d).astype(np.float32))
                   for _ in range(4))
     mask = torch.from_numpy(
         (np.arange(n)[None, :] < np.asarray(lens)[:, None]).astype(np.int32))
+    return q, k, v, g, mask
+
+
+@pytest.mark.parametrize("bh,n,d,lens", SMOKE_SHAPES)
+def test_emulated_dq_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
+                                                                    lens):
+    q, k, v, g, mask = _smoke_inputs(bh, n, d, lens)
+    out, m, l = flash.flash_attention_plain(q, k, v, mask)
+    dd = (g * out).sum(-1, keepdim=True)
+    got = flash.flash_attention_dq_tf32(q, k, v, mask, g, m, l, dd, 1)
+    want = flash.flash_attention_dq_plain(q, k, v, mask, g, m, l, dd)
+    err = float((got - want).abs().max())
+    assert err <= TOL_DEFAULT * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("bh,n,d,lens", SMOKE_SHAPES)
+def test_emulated_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
+                                                                 lens):
+    """chip_smoke.py's small cases at "default": short rows (100-150 real
+    keys) concentrate P, which gives one pass its largest dk error there
+    (PERF.md), still inside 2^-8 * max(1, max|want|)."""
+    q, k, v, g, mask = _smoke_inputs(bh, n, d, lens)
     out, m, l = flash.flash_attention_plain(q, k, v, mask)
     got = flash.flash_attention_tf32(q, k, v, mask, 1)
     assert float((got[0] - out).abs().max()) <= TOL_DEFAULT
@@ -196,6 +230,17 @@ def test_cpu_wrappers_run_the_exact_twins_at_either_precision(precision):
         grads, flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, g)))
 
 
+@pytest.mark.parametrize("precision", flash.PRECISIONS)
+def test_cpu_dq_wrapper_runs_the_exact_twin_at_either_precision(precision):
+    q, k, v, g, mask = _inputs(11)
+    out, m, l = flash.flash_attention_plain(q, k, v, mask)
+    args = (q, k, v, mask, g, m, l, (g * out).sum(-1, keepdim=True))
+    before = flash.flash_attention_dq.launches
+    got = flash.flash_attention_dq(*args, precision=precision)
+    assert torch.equal(got, flash.flash_attention_dq_plain(*args))
+    assert flash.flash_attention_dq.launches == before
+
+
 def test_flash_attention_carries_precision_through_autograd():
     q, k, v, _, _ = _inputs(7)
     mask = torch.arange(N)[None, :] < torch.tensor([[256], [100]])
@@ -212,9 +257,9 @@ def test_flash_attention_carries_precision_through_autograd():
 
 def test_unknown_precision_raises():
     q, k, v, g, mask = _inputs(8)
+    rows = (q[..., :1],) * 3
     for fn, args in ((flash.flash_attention_fwd, (q, k, v, mask)),
-                     (flash.flash_attention_dkv,
-                      (q, k, v, mask, g, q[..., :1], q[..., :1],
-                       q[..., :1]))):
+                     (flash.flash_attention_dq, (q, k, v, mask, g, *rows)),
+                     (flash.flash_attention_dkv, (q, k, v, mask, g, *rows))):
         with pytest.raises(ValueError, match="precision must be one of"):
             fn(*args, precision="tf32")
