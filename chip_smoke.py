@@ -53,6 +53,24 @@ Phases, each of which must pass (exit code 1 otherwise):
    and its operations times the TF32 passes (3 at "highest", 1 at
    "default") over the 495 TFLOP/s dense TF32 rate; the f32 bound (67
    TFLOP/s) is printed beside it.
+8. the headline path at full width: anchor-based DSNet, nystromformer,
+   ROI pooling, anchor scale 12, F 1024, 8 heads, hidden 128, fc depth 7
+   (2,248,843 parameters), seeded random weights, the same 8 videos:
+   evaluate_on_device at batch size 4 with every F in [0, 1]; on every
+   eval batch, the largest (bucket 2304, 4 rows) included, pred_cls at
+   real positions within 1e-4 of the same module and weights run in
+   float64 on the CPU, and the boxes within 1e-4 of max(1, max |box|);
+   2 epochs through trainer.train_records as in phase 6 (losses finite,
+   every parameter changed, the reloaded best checkpoint reproducing the
+   best F within 1e-6); no kernel of the port launched in the whole
+   phase; times as in phase 7, the eval batch's breakdown and peak device
+   memory;
+9. the other token mixers (fourier at the paper orientation, performer,
+   linformer, dwt, linear) at F 1024, 8 heads and the default scales:
+   predict over the eval batches, each against float64 as in phase 8,
+   one train step per bucket (loss finite, every parameter changed,
+   Performer's projection buffer bit-identical), no kernel launched;
+   predict ms per batch and the train step at the largest bucket.
 
 The last lines are a JSON object describing each kernel, the nvidia-smi
 line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
@@ -131,6 +149,21 @@ class Phases:
         if not ok:
             self.failed.append(what)
         return ok
+
+
+def port_kernels(flash):
+    """The wrappers of the port's kernels, each with its launch count."""
+    return (flash.flash_attention_fwd, flash.flash_attention_dq,
+            flash.flash_attention_dkv)
+
+
+def launch_counts(flash) -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in port_kernels(flash)}
+
+
+def reset_launches(flash) -> None:
+    for fn in port_kernels(flash):
+        fn.launches = 0
 
 
 def flash_case(flash, bh, n, d, lens, seed):
@@ -283,6 +316,39 @@ def check_head_dim_routing(flash, get_model, args, tb, phases: Phases
                      f"{'dense path' if use_pallas is None else 'raises'}")
 
 
+def eval_batch_breakdown(model, entry, nms_thresh: float
+                         ) -> Tuple[float, float, int]:
+    """(ms of one ``_eval_batch_device``, ms of its NMS, boxes) on the eval
+    batch ``entry``, in CUDA events."""
+    from edsnet_torch.ops.bbox import nms_masked
+    from edsnet_torch.parallel.eval_device import _eval_batch_device
+
+    tb, scales = entry["tb"], len(model.scales)
+    batch_ms = cuda_ms(lambda: _eval_batch_device(
+        model, tb, scales, nms_thresh, entry["frame_bucket"],
+        entry["uniform_rate"]), iters=2, warmup=1)
+    with torch.inference_mode():
+        pred_cls, boxes = model.predict(tb["seq"], tb["mask"])
+        positions = torch.arange(pred_cls.shape[1],
+                                 device=pred_cls.device) // scales
+        valid = positions[None, :] < tb["lens"][:, None]
+        boxes_c = torch.round(torch.minimum(
+            torch.clamp(boxes, min=0.0),
+            tb["lens"].to(torch.float32)[:, None, None]))
+        nms_ms = cuda_ms(lambda: nms_masked(pred_cls, boxes_c, nms_thresh,
+                                            valid), iters=2, warmup=1)
+    return batch_ms, nms_ms, int(pred_cls.shape[1])
+
+
+def print_breakdown(smi: str, label: str, entry, batch_ms: float,
+                    predict_ms: float, nms_ms: float, n_boxes: int) -> None:
+    print(f"  [{smi}] {label} eval batch at bucket "
+          f"{int(entry['tb']['seq'].shape[1])}: {batch_ms:.1f} ms = predict "
+          f"{predict_ms:.2f} ms + NMS ({n_boxes} boxes) {nms_ms:.1f} ms + "
+          f"rasterise, keyshot knapsack and F1 "
+          f"{batch_ms - predict_ms - nms_ms:.1f} ms")
+
+
 def dense_attention(q, k, v, mask):
     """Dense masked attention, [B, H, N, D] with a [B, N] bool key mask."""
     s = torch.einsum("bhnd,bhmd->bhnm", q, k) / q.shape[-1] ** 0.5
@@ -306,17 +372,14 @@ def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
         fn(*leaves, mask, **kw).backward(g)
         return [t.grad for t in leaves]
 
-    kernels = (flash.flash_attention_fwd, flash.flash_attention_dq,
-               flash.flash_attention_dkv)
     want = grads(dense_attention)
     launches = None
     for precision, tol in TOLS.items():
-        for fn in kernels:
-            fn.launches = 0
+        reset_launches(flash)
         got = grads(flash.flash_attention, precision=precision)
         torch.cuda.synchronize()
         if launches is None:
-            launches = {fn.__name__: fn.launches for fn in kernels}
+            launches = launch_counts(flash)
         again = grads(flash.flash_attention, precision=precision)
         errs = []
         for name, a, w in zip("qkv", got, want):
@@ -337,17 +400,17 @@ def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
 
 
 def check_training(flash, phases: Phases, train_videos, val_videos,
-                   args) -> Dict[str, int]:
+                   args, expect_kernels: bool = True) -> Dict[str, int]:
     """The training path at full width through trainer.train_records;
-    returns the launch counts of that run."""
+    returns the launch counts of that run.  ``expect_kernels``: the
+    backbone is attention, whose validations launch the forward kernel
+    once per eval batch; otherwise no kernel may launch."""
     from edsnet_torch import trainer
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
     from edsnet_torch.parallel.eval_device import evaluate_on_device
     from edsnet_torch.utils.checkpoint import load_checkpoint
 
-    kernels = (flash.flash_attention_fwd, flash.flash_attention_dq,
-               flash.flash_attention_dkv)
     steps, evals = [], []
     real_step, real_eval = trainer.ab_train_step, trainer.eval_fscore_device
 
@@ -369,14 +432,13 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
                                                          counted_eval)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            for fn in kernels:
-                fn.launches = 0
+            reset_launches(flash)
             t0 = time.perf_counter()
             best, f1s, epochs = trainer.train_records(
                 args, train_videos, val_videos, f"{tmp}/best.pt")
             torch.cuda.synchronize()
             train_ms = (time.perf_counter() - t0) * 1e3
-            launches = {fn.__name__: fn.launches for fn in kernels}
+            launches = launch_counts(flash)
 
             fresh = get_model(args.model, **vars(args))
             init_weights(fresh, torch.Generator().manual_seed(args.seed))
@@ -405,14 +467,22 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
                  f"parameters changed ({changed}/{len(init)} tensors)")
     phases.check(all(n == 0 for _, n in steps),
                  "no forward-kernel launch inside a train step")
-    phases.check(len(evals) == args.max_epoch
-                 and all(n == b for n, b in evals),
-                 f"forward-kernel launches per validation == eval batches "
-                 f"{evals}")
-    phases.check(launches["flash_attention_fwd"] == sum(b for _, b in evals)
-                 and launches["flash_attention_dq"] == 0
-                 and launches["flash_attention_dkv"] == 0,
-                 f"training path launches {launches}")
+    if expect_kernels:
+        phases.check(len(evals) == args.max_epoch
+                     and all(n == b for n, b in evals),
+                     f"forward-kernel launches per validation == eval "
+                     f"batches {evals}")
+        phases.check(launches["flash_attention_fwd"]
+                     == sum(b for _, b in evals)
+                     and launches["flash_attention_dq"] == 0
+                     and launches["flash_attention_dkv"] == 0,
+                     f"training path launches {launches}")
+    else:
+        phases.check(len(evals) == args.max_epoch,
+                     f"one validation per epoch {evals}")
+        phases.check(not any(launches.values()),
+                     f"no kernel launch on the {args.base_model} training "
+                     f"path {launches}")
     phases.check(all(0.0 <= f <= 1.0 for f in f1s), "every F in [0, 1]")
     phases.check(abs(reloaded_f - best) <= 1e-6,
                  f"reloaded best checkpoint F {reloaded_f:.7f} == recorded "
@@ -504,15 +574,19 @@ def time_training(phases: Phases, train_videos, val_videos, args,
     opt_ms = cuda_ms(optimizer.step, iters=5, warmup=2)
     sizes = [int(b["video_valid"].sum())
              for b in sorted(batches, key=lambda b: b["seq"].shape[1])]
-    print(f"  [{smi}] train step ms per bucket (batch sizes {sizes}): "
+    tag = f"{args.base_model} scales {args.anchor_scales}"
+    print(f"  [{smi}] {tag}: train step ms per bucket (batch sizes "
+          f"{sizes}): "
           f"{ {k: round(v, 3) for k, v in per_bucket.items()} }; one epoch "
           f"of {len(batches)} steps {epoch_ms:.3f} ms; validation of "
           f"{len(val_videos)} videos {val_ms:.1f} ms")
     busy = (f"{busy_ms:.3f} ms of CUDA kernels in {wall_ms:.3f} ms, busy "
             f"{100 * busy_ms / wall_ms:.1f} %" if busy_ms > 0 else
             "device time not measured (the profiler saw no kernels)")
-    print(f"  [{smi}] one epoch of steps under torch.profiler: {busy}")
-    print(f"  [{smi}] train step at bucket {int(batch['seq'].shape[1])}: "
+    print(f"  [{smi}] {tag}: one epoch of steps under torch.profiler: "
+          f"{busy}")
+    print(f"  [{smi}] {tag}: train step at bucket "
+          f"{int(batch['seq'].shape[1])}: "
           f"label sampling {labels_ms:.3f} ms, forward with losses "
           f"{fwd_ms - labels_ms:.3f} ms, backward {fwd_bwd_ms - fwd_ms:.3f}"
           f" ms, Adam {opt_ms:.3f} ms (whole step "
@@ -586,6 +660,223 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
     return timing
 
 
+HEADLINE_PARAMS = 2_248_843   # nystromformer, scale 12, F 1024, 8 heads
+MIXERS = ("fourier", "performer", "linformer", "dwt", "linear")
+
+
+def seeded_model(args, device: torch.device):
+    """The CLI's model with init_weights drawn from --seed, on ``device``."""
+    from edsnet_torch.models.common import init_weights
+    from edsnet_torch.models.model_zoo import get_model
+
+    model = get_model(args.model, **vars(args))
+    init_weights(model, torch.Generator().manual_seed(args.seed))
+    return model.to(device)
+
+
+def check_against_f64(model, args, prepared, phases: Phases, label: str
+                      ) -> Dict[str, float]:
+    """pred_cls and boxes of ``model`` (eval mode, on the card) on every
+    eval batch of ``prepared`` against the same module and weights run in
+    float64 on the CPU, at real positions: pred_cls within TOL, boxes
+    within TOL * max(1, max |box|).  Returns the largest errors."""
+    from edsnet_torch.models.model_zoo import get_model
+
+    ref = get_model(args.model, **vars(args))
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = ref.double().eval()
+    cls_errs, box_errs, box_scale, finite = [], [], 1.0, True
+    for entry in prepared:
+        tb = entry["tb"]
+        with torch.inference_mode():
+            got_cls, got_boxes = model.predict(tb["seq"], tb["mask"])
+            want_cls, want_boxes = ref.predict(tb["seq"].cpu().double(),
+                                               tb["mask"].cpu())
+        real = tb["mask"].cpu().repeat_interleave(len(model.scales), dim=1)
+        got_cls, got_boxes = got_cls.cpu().double(), got_boxes.cpu().double()
+        finite &= bool(torch.isfinite(got_cls[real]).all()
+                       and torch.isfinite(got_boxes[real]).all())
+        cls_errs.append(float((got_cls - want_cls).abs()[real].max()))
+        box_errs.append(float((got_boxes - want_boxes).abs()[real].max()))
+        box_scale = max(box_scale, float(want_boxes.abs()[real].max()))
+    largest = prepared[-1]["tb"]
+    print(f"    {label} on the card vs float64 on the CPU, per eval batch "
+          f"(buckets {[int(e['tb']['seq'].shape[1]) for e in prepared]}, "
+          f"the last at {tuple(largest['seq'].shape[:2])} with lens "
+          f"{largest['lens'].tolist()}): pred_cls max abs err "
+          f"{[float(f'{e:.3e}') for e in cls_errs]}; boxes "
+          f"{[float(f'{e:.3e}') for e in box_errs]} (max |box| "
+          f"{box_scale:.1f})")
+    phases.check(finite and max(cls_errs) <= TOL,
+                 f"{label}: pred_cls within {TOL:g} of float64 on every "
+                 f"eval batch")
+    phases.check(max(box_errs) <= TOL * box_scale,
+                 f"{label}: boxes within {TOL:g} x max(1, max |box|) of "
+                 f"float64 on every eval batch")
+    return {"pred_cls": max(cls_errs), "boxes": max(box_errs)}
+
+
+def check_headline(flash, phases: Phases, records, train_videos,
+                   val_videos, seed: int, smi: str) -> None:
+    """The headline path at full width: anchor-based shallow DSNet,
+    nystromformer, ROI pooling, anchor scale 12, F 1024, 8 heads, hidden
+    128, fc depth 7.  Evaluate (batch size 4) with F in [0, 1] and every
+    eval batch against float64, train 2 epochs through
+    trainer.train_records, time it, and launch no kernel of the port."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch.parallel.eval_device import (evaluate_on_device,
+                                                   prepare_eval_batches)
+
+    flags = ["anchor-based", "--base-model", "nystromformer",
+             "--anchor-scales", "12", "--seed", str(seed)]
+    args = config_lib.get_arguments(flags)
+    device = torch.device("cuda")
+    reset_launches(flash)
+    model = seeded_model(args, device).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    phases.check(n_params == HEADLINE_PARAMS,
+                 f"nystromformer head: {n_params} parameters")
+
+    evaluate_on_device(model, records[:1], args.nms_thresh, batch_size=4,
+                       bucket_size=args.bucket_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_video = []
+    t0 = time.perf_counter()
+    mean_f, mean_div = evaluate_on_device(
+        model, records, args.nms_thresh, batch_size=4,
+        bucket_size=args.bucket_size, per_video=per_video)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  mean F {mean_f:.6f}, mean diversity {mean_div:.6f}; F per "
+          f"video {[round(p['fscore'], 6) for p in per_video]}")
+    phases.check(all(0.0 <= p["fscore"] <= 1.0 for p in per_video)
+                 and len(per_video) == len(records),
+                 "nystromformer: every F in [0, 1]")
+
+    prepared = prepare_eval_batches(records, 4, args.bucket_size, device)
+    largest = prepared[-1]
+    phases.check(tuple(largest["tb"]["seq"].shape[:2]) == (4, 2304),
+                 f"largest eval batch (4, 2304): "
+                 f"{tuple(largest['tb']['seq'].shape[:2])}")
+    check_against_f64(model, args, prepared, phases, "nystromformer")
+    with torch.inference_mode():
+        predict_ms = [cuda_ms(lambda: model.predict(e["tb"]["seq"],
+                                                    e["tb"]["mask"]),
+                              iters=5) for e in prepared]
+    batch_ms, nms_ms, n_boxes = eval_batch_breakdown(model, largest,
+                                                     args.nms_thresh)
+
+    train_args = config_lib.get_arguments(flags + ["--batch-size", "4",
+                                                   "--max-epoch", "2"])
+    before = launch_counts(flash)
+    torch.cuda.reset_peak_memory_stats()
+    check_training(flash, phases, train_videos, val_videos, train_args,
+                   expect_kernels=False)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    time_training(phases, train_videos, val_videos, train_args, smi)
+    after = launch_counts(flash)
+    phases.check(not any(before.values()) and not any(after.values()),
+                 f"no kernel of the port launched on the nystromformer path "
+                 f"(eval {before}, training {after})")
+    print(f"  [{smi}] nystromformer: predict ms per batch "
+          f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
+          f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); eval of "
+          f"{len(records)} videos {eval_ms:.1f} ms; peak device memory "
+          f"{eval_peak:.2f} GiB in evaluation, {train_peak:.2f} GiB in "
+          f"training")
+    print_breakdown(smi, "nystromformer", largest, batch_ms, predict_ms[-1],
+                    nms_ms, n_boxes)
+
+
+def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
+                 smi: str) -> None:
+    """Each other token mixer at F 1024, 8 heads, the CLI default scales:
+    predict over the eval batches, each against float64, one train
+    step per bucket (loss finite, every parameter moved, buffers
+    bit-identical), predict and train-step times, no kernel launch."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch import trainer
+    from edsnet_torch.data import batching
+    from edsnet_torch.models.common import set_dropout_generator
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import prepare_eval_batches
+
+    device = torch.device("cuda")
+    reset_launches(flash)
+    base_args = config_lib.get_arguments(["anchor-based", "--seed",
+                                          str(seed)])
+    prepared = prepare_eval_batches(records, 4, base_args.bucket_size,
+                                    device)
+    items = batching.prepare_items(
+        train_videos, base_args.model, anchor_scales=base_args.anchor_scales,
+        pos_iou=base_args.pos_iou_thresh, neg_iou=base_args.neg_iou_thresh,
+        inc_iou=base_args.incomplete_iou_thresh,
+        bucket_size=base_args.bucket_size)
+    batches = sorted((trainer.to_device(b, device) for b in
+                      batching.batch_items(items, 4, base_args.bucket_size,
+                                           shuffle=False)),
+                     key=lambda b: b["seq"].shape[1])
+    kw = dict(lambda_reg=base_args.lambda_reg,
+              neg_ratio=base_args.neg_sample_ratio,
+              inc_ratio=base_args.incomplete_sample_ratio)
+    for base in MIXERS:
+        args = config_lib.get_arguments(["anchor-based", "--base-model", base,
+                                         "--seed", str(seed)])
+        model = seeded_model(args, device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            cls = [model.predict(e["tb"]["seq"], e["tb"]["mask"])[0][
+                e["tb"]["mask"].repeat_interleave(len(model.scales), dim=1)]
+                for e in prepared]
+            predict_ms = [cuda_ms(lambda: model.predict(e["tb"]["seq"],
+                                                        e["tb"]["mask"]),
+                                  iters=3, warmup=1) for e in prepared]
+        phases.check(all(bool(((c >= 0) & (c <= 1)).all()) for c in cls),
+                     f"{base} ({n_params} parameters): pred_cls in [0, 1] "
+                     f"at the real positions of all {len(prepared)} eval "
+                     f"batches")
+        check_against_f64(model, args, prepared, phases, base)
+
+        set_dropout_generator(model, torch.Generator(device).manual_seed(
+            seed + 1))
+        gen = torch.Generator(device).manual_seed(seed + 2)
+        optimizer = steps.make_optimizer(model.parameters(), args.lr,
+                                         args.weight_decay)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        buffers = {n: b.clone() for n, b in model.named_buffers()}
+        losses = torch.stack([steps.ab_train_step(model, optimizer, b, gen,
+                                                  **kw)["loss"]
+                              for b in batches]).cpu()
+        moved = sum(not torch.equal(params[n], p)
+                    for n, p in model.named_parameters())
+        kept = all(torch.equal(buffers[n], b) for n, b in
+                   model.named_buffers())
+        print(f"    {base}: one step per bucket "
+              f"{[int(b['seq'].shape[1]) for b in batches]}, losses "
+              f"{[round(float(x), 4) for x in losses]}; buffers "
+              f"{sorted(buffers)}")
+        phases.check(bool(torch.isfinite(losses).all()),
+                     f"{base}: every train step's loss is finite")
+        phases.check(moved == len(params),
+                     f"{base}: parameters changed ({moved}/{len(params)})")
+        phases.check(kept and len(buffers) == (base == "performer"),
+                     f"{base}: buffers bit-identical after training "
+                     f"{sorted(buffers)}")
+        step_ms = cuda_ms(lambda: steps.ab_train_step(
+            model, optimizer, batches[-1], gen, **kw), iters=5, warmup=2)
+        print(f"  [{smi}] {base}: predict ms per batch "
+              f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
+              f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); train "
+              f"step at bucket {int(batches[-1]['seq'].shape[1])} "
+              f"{step_ms:.3f} ms")
+    counts = launch_counts(flash)
+    phases.check(not any(counts.values()),
+                 f"no kernel of the port launched by the other mixers "
+                 f"{counts}")
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -647,9 +938,7 @@ def main() -> int:
     from edsnet_torch.kernels import flash_attention as flash
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
-    from edsnet_torch.ops.bbox import nms_masked
-    from edsnet_torch.parallel.eval_device import (_eval_batch_device,
-                                                   batch_eval_device,
+    from edsnet_torch.parallel.eval_device import (batch_eval_device,
                                                    evaluate_on_device,
                                                    prepare_eval_batches)
 
@@ -740,21 +1029,8 @@ def main() -> int:
                            phases)
 
     # where one eval batch's time goes, on the largest bucket
-    entry = prepared[-1]
-    tb, scales = entry["tb"], len(model.scales)
-    batch_ms = cuda_ms(lambda: _eval_batch_device(
-        model, tb, scales, args.nms_thresh, entry["frame_bucket"],
-        entry["uniform_rate"]), iters=2, warmup=1)
-    with torch.inference_mode():
-        pred_cls, boxes = model.predict(tb["seq"], tb["mask"])
-        positions = torch.arange(pred_cls.shape[1], device=device) // scales
-        valid = positions[None, :] < tb["lens"][:, None]
-        boxes_c = torch.round(torch.minimum(
-            torch.clamp(boxes, min=0.0),
-            tb["lens"].to(torch.float32)[:, None, None]))
-        nms_ms = cuda_ms(lambda: nms_masked(pred_cls, boxes_c,
-                                            args.nms_thresh, valid),
-                         iters=2, warmup=1)
+    batch_ms, nms_ms, n_boxes = eval_batch_breakdown(model, prepared[-1],
+                                                     args.nms_thresh)
 
     print("phase: differentiable attention path (the backward kernels)")
     bwd_launches = check_flash_autograd(flash, phases)
@@ -777,11 +1053,14 @@ def main() -> int:
           f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
           f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); eval of "
           f"{len(records)} videos {eval_ms:.1f} ms")
-    print(f"  [{smi}] eval batch at bucket {int(tb['seq'].shape[1])}: "
-          f"{batch_ms:.1f} ms = predict {predict_ms[-1]:.2f} ms + NMS "
-          f"({pred_cls.shape[1]} boxes) {nms_ms:.1f} ms + rasterise, "
-          f"keyshot knapsack and F1 {batch_ms - predict_ms[-1] - nms_ms:.1f} "
-          f"ms")
+    print_breakdown(smi, "attention", prepared[-1], batch_ms, predict_ms[-1],
+                    nms_ms, n_boxes)
+
+    print("phase: headline path at full width (nystromformer, scale 12)")
+    check_headline(flash, phases, records, train_videos, val_videos,
+                   opts.seed, smi)
+    print("phase: the other token mixers at full width")
+    check_mixers(flash, phases, records, train_videos, opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1

@@ -20,6 +20,7 @@ import torch
 from edsnet_torch import config as config_lib
 from edsnet_torch.data.dataset import (AverageMeter, VideoDataset,
                                        get_ckpt_path, load_yaml)
+from edsnet_torch.models.base import NOT_PORTED
 from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.parallel.eval_device import evaluate_on_device
 from edsnet_torch.utils import checkpoint as ckpt_lib
@@ -63,8 +64,8 @@ def check_model_supported(args) -> None:
         _todo(f"--model-depth {args.model_depth}", 10)
     if args.pooling_type != "roi":
         _todo(f"--pooling-type {args.pooling_type}", 10)
-    if args.base_model != "attention":
-        _todo(f"--base-model {args.base_model}", "3 / 11")
+    if args.base_model in NOT_PORTED:
+        _todo(f"--base-model {args.base_model}", 11)
 
 
 def check_supported(args) -> None:

@@ -3,33 +3,59 @@ explicit generator, the fc block.
 
 Init matches edsnet_tpu/models/common.py (the reference trainer's re-init):
 xavier-uniform with gain sqrt(2) on every Linear weight, constant 0.1 bias,
-LayerNorm weight 1 and bias 0 with eps 1e-5.
+LayerNorm weight 1 and bias 0 with eps 1e-5.  A module with raw parameters
+or buffers of its own (the nystromformer's ``res_conv``, Linformer's
+``proj_k`` / ``proj_v``, the DWT net's transposed conv, Performer's
+``projection``) draws them in its ``init_leaves(generator)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
 
 
+def xavier2_(tensor: torch.Tensor, generator: torch.Generator,
+             fan_in: int, fan_out: int) -> torch.Tensor:
+    """In place U(+-sqrt(2) * sqrt(6 / (fan_in + fan_out))), flax's
+    ``variance_scaling(2, fan_avg, uniform)``."""
+    limit = math.sqrt(2.0) * math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return tensor.uniform_(-limit, limit, generator=generator)
+
+
+def xavier2_flax_(param: torch.Tensor, generator: torch.Generator
+                  ) -> torch.Tensor:
+    """``xavier2_`` with flax's fan rule for a raw param of flax layout:
+    fan_in = shape[-2] * r, fan_out = shape[-1] * r, r the product of the
+    other dimensions (a (h, 1, 33, 1) ``res_conv`` has fan_in 33h and
+    fan_out h, unlike torch's Conv2d rule)."""
+    r = math.prod(param.shape[:-2])
+    return xavier2_(param, generator, param.shape[-2] * r,
+                    param.shape[-1] * r)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise every Linear and LayerNorm under ``module`` in place,
-    drawing from ``generator`` in module order."""
+    """Re-initialise every Linear and LayerNorm under ``module``, and the
+    raw leaves of every module with an ``init_leaves``, in place, drawing
+    from ``generator`` in module order."""
     for sub in module.modules():
         if isinstance(sub, nn.Linear):
             fan_out, fan_in = sub.weight.shape
-            limit = math.sqrt(2.0) * math.sqrt(6.0 / (fan_in + fan_out))
-            with torch.no_grad():
-                sub.weight.uniform_(-limit, limit, generator=generator)
-                if sub.bias is not None:
+            xavier2_(sub.weight, generator, fan_in, fan_out)
+            if sub.bias is not None:
+                with torch.no_grad():
                     sub.bias.fill_(0.1)
         elif isinstance(sub, nn.LayerNorm):
             nn.init.ones_(sub.weight)
             nn.init.zeros_(sub.bias)
+        elif hasattr(sub, "init_leaves"):
+            sub.init_leaves(generator)
 
 
 def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -90,3 +116,33 @@ class FcBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm_0(self.dropout(torch.relu(self.Dense_0(x))))
+
+
+class PreNormStack(nn.Module):
+    """``depth`` blocks of x + attn(LN(x)) then x + FF(LN(x)), the FF being
+    Linear -> exact-erf GELU -> Dropout -> Linear -> Dropout (Performer and
+    Linformer).  Names follow the flax tree: ``attn_norm_{i}``,
+    ``attn_{i}``, ``ff_norm_{i}``, ``ff1_{i}``, ``ff2_{i}``."""
+
+    def __init__(self, dim: int, depth: int, mlp_dim: int, dropout: float,
+                 make_attention: Callable[[], nn.Module]):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"attn_norm_{i}", nn.LayerNorm(dim, eps=LN_EPS))
+            self.add_module(f"attn_{i}", make_attention())
+            self.add_module(f"ff_norm_{i}", nn.LayerNorm(dim, eps=LN_EPS))
+            self.add_module(f"ff1_{i}", nn.Linear(dim, mlp_dim))
+            self.add_module(f"ff2_{i}", nn.Linear(mlp_dim, dim))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        for i in range(self.depth):
+            attn_norm, attn, ff_norm, ff1, ff2 = (
+                getattr(self, f"{name}_{i}")
+                for name in ("attn_norm", "attn", "ff_norm", "ff1", "ff2"))
+            x = attn(attn_norm(x), mask) + x
+            f = self.dropout(F.gelu(ff1(ff_norm(x))))
+            x = self.dropout(ff2(f)) + x
+        return x

@@ -76,7 +76,8 @@ class DSNet(nn.Module):
     def __init__(self, base_model: str, num_feature: int, num_hidden: int,
                  anchor_scales: Sequence[int], num_head: int,
                  fc_depth: int = 5, pooling_type: str = "roi",
-                 use_pallas: Optional[bool] = None):
+                 use_pallas: Optional[bool] = None,
+                 orientation: str = "paper"):
         super().__init__()
         if pooling_type != "roi":
             raise NotImplementedError(
@@ -84,7 +85,7 @@ class DSNet(nn.Module):
                 f"Queue A item 10); this slice serves roi pooling")
         self.scales = anchor_scales_list(anchor_scales)
         self.base_model = build_base_model(base_model, num_feature, num_head,
-                                           use_pallas)
+                                           use_pallas, orientation)
         self.layer_norm = nn.LayerNorm(num_feature, eps=LN_EPS)
         self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth)
         self.heads = _AnchorHeads(num_hidden)

@@ -18,12 +18,14 @@ MODEL_DEPTHS = ("shallow", "deep", "local-global-attention", "original",
 def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, model_depth="shallow",
                      use_pallas: Optional[bool] = None,
-                     **kwargs) -> nn.Module:
+                     orientation: str = "paper", **kwargs) -> nn.Module:
     """``use_pallas``: the --use-pallas / --no-pallas tri-state (None =
-    auto), see models/base.py."""
+    auto), see models/base.py; ``orientation``: the fourier backbone's
+    --fft-attention-orientation."""
     if model_depth == "shallow":
         return DSNet(base_model, num_feature, num_hidden, anchor_scales,
-                     num_head, fc_depth, pooling_type, use_pallas)
+                     num_head, fc_depth, pooling_type, use_pallas,
+                     orientation)
     if model_depth in MODEL_DEPTHS:
         raise NotImplementedError(
             f"--model-depth {model_depth} is not ported yet (ROADMAP.md "

@@ -3,9 +3,10 @@
 
 Counterpart of edsnet_tpu/utils/checkpoint.py:save_checkpoint /
 load_checkpoint.  Save writes a torch ``state_dict``.  Load reads either
-that or a flax msgpack checkpoint written by edsnet_tpu (msgpack maps, each
-array an ext type 1 holding ``(shape, dtype name, C-order bytes)``), which
-goes through the weight bridge.  ``msgpack`` is imported only for the
+that or a flax msgpack checkpoint written by edsnet_tpu (the variables
+dict, ``params`` and ``constants``, as msgpack maps, each array an ext
+type 1 holding ``(shape, dtype name, C-order bytes)``), which goes through
+the weight bridge.  ``msgpack`` is imported only for the
 latter.
 """
 from __future__ import annotations
