@@ -66,11 +66,23 @@ Phases, each of which must pass (exit code 1 otherwise):
    phase; times as in phase 7, the eval batch's breakdown and peak device
    memory;
 9. the other token mixers (fourier at the paper orientation, performer,
-   linformer, dwt, linear) at F 1024, 8 heads and the default scales:
-   predict over the eval batches, each against float64 as in phase 8,
-   one train step per bucket (loss finite, every parameter changed,
-   Performer's projection buffer bit-identical), no kernel launched;
-   predict ms per batch and the train step at the largest bucket.
+   linformer, dwt, linear, lstm, bilstm, gcn) at F 1024, 8 heads and the
+   default scales: predict over the eval batches, each against float64 as
+   in phase 8 (the gcn's float64 run takes the keep sets the card chose,
+   and the phase prints how many entries its own selection would change),
+   one train step per bucket (loss finite, every trainable parameter
+   changed, Performer's projection buffer and the LSTMs' frozen zero
+   bias_ih_l0 bit-identical), no kernel launched; predict ms per batch
+   and the train step at the largest bucket;
+10. the train-step flags on the headline head (nystromformer, scale 12)
+   and on attention: --compute-dtype bfloat16 (one step per bucket, losses
+   finite, master parameters and Adam moments float32, every parameter
+   changed; step ms and peak memory against float32 at the largest
+   bucket), --remat (one step equal to the plain step's updated parameters
+   within 1e-6; both peak memories), trainer.train_records with both flags
+   for one epoch (as in phase 6), and --matmul-precision tensorfloat32
+   (both TF32 switches on during it and off after it; the headline's
+   pred_cls gap to float64 and predict ms); no kernel launched.
 
 The last lines are a JSON object describing each kernel, the nvidia-smi
 line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
@@ -511,8 +523,6 @@ def time_training(phases: Phases, train_videos, val_videos, args,
     """A train step per bucket, its stages at the largest bucket, one epoch
     of steps with the device's busy share, and one validation, in CUDA
     events."""
-    from edsnet_torch import trainer
-    from edsnet_torch.data import batching
     from edsnet_torch.models.common import (init_weights,
                                             set_dropout_generator)
     from edsnet_torch.models.model_zoo import get_model
@@ -529,12 +539,7 @@ def time_training(phases: Phases, train_videos, val_videos, args,
     gen = torch.Generator(device).manual_seed(2)
     optimizer = steps.make_optimizer(model.parameters(), args.lr,
                                      args.weight_decay)
-    items = batching.prepare_items(
-        train_videos, args.model, anchor_scales=args.anchor_scales,
-        pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
-        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size)
-    batches = [trainer.to_device(b, device) for b in batching.batch_items(
-        items, args.batch_size, args.bucket_size, shuffle=False)]
+    batches = train_batches(args, train_videos, device, args.batch_size)
     kw = dict(lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
               inc_ratio=args.incomplete_sample_ratio)
     per_bucket = {}
@@ -661,7 +666,8 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
 
 
 HEADLINE_PARAMS = 2_248_843   # nystromformer, scale 12, F 1024, 8 heads
-MIXERS = ("fourier", "performer", "linformer", "dwt", "linear")
+MIXERS = ("fourier", "performer", "linformer", "dwt", "linear", "lstm",
+          "bilstm", "gcn")
 
 
 def seeded_model(args, device: torch.device):
@@ -674,24 +680,47 @@ def seeded_model(args, device: torch.device):
     return model.to(device)
 
 
-def check_against_f64(model, args, prepared, phases: Phases, label: str
-                      ) -> Dict[str, float]:
+def f64_errors(model, args, prepared, keep_from_card: bool = False):
     """pred_cls and boxes of ``model`` (eval mode, on the card) on every
     eval batch of ``prepared`` against the same module and weights run in
-    float64 on the CPU, at real positions: pred_cls within TOL, boxes
-    within TOL * max(1, max |box|).  Returns the largest errors."""
+    float64 on the CPU, at real positions -> (pred_cls errors, box errors,
+    max |box|, all finite, changed keep entries), one error per batch.
+    ``keep_from_card``: the gcn's float64 run takes the keep sets the card
+    chose (models/gcn.py:top_similarity_keep), and each batch counts the
+    entries that float64's own selection would change."""
+    from edsnet_torch.models import gcn
     from edsnet_torch.models.model_zoo import get_model
 
     ref = get_model(args.model, **vars(args))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     ref = ref.double().eval()
-    cls_errs, box_errs, box_scale, finite = [], [], 1.0, True
+    real_keep = gcn.top_similarity_keep
+    cls_errs, box_errs, changed, box_scale, finite = [], [], [], 1.0, True
     for entry in prepared:
         tb = entry["tb"]
-        with torch.inference_mode():
-            got_cls, got_boxes = model.predict(tb["seq"], tb["mask"])
-            want_cls, want_boxes = ref.predict(tb["seq"].cpu().double(),
-                                               tb["mask"].cpu())
+        chosen, flips = [], []
+
+        def record(*a):
+            chosen.append(real_keep(*a))
+            return chosen[-1]
+
+        def replay(*a):
+            own, card = real_keep(*a), chosen.pop(0).cpu()
+            flips.append(int((own != card).sum()))
+            return card
+
+        try:
+            with torch.inference_mode():
+                if keep_from_card:
+                    gcn.top_similarity_keep = record
+                got_cls, got_boxes = model.predict(tb["seq"], tb["mask"])
+                if keep_from_card:
+                    gcn.top_similarity_keep = replay
+                want_cls, want_boxes = ref.predict(tb["seq"].cpu().double(),
+                                                   tb["mask"].cpu())
+        finally:
+            gcn.top_similarity_keep = real_keep
+        changed.append(sum(flips))
         real = tb["mask"].cpu().repeat_interleave(len(model.scales), dim=1)
         got_cls, got_boxes = got_cls.cpu().double(), got_boxes.cpu().double()
         finite &= bool(torch.isfinite(got_cls[real]).all()
@@ -699,6 +728,16 @@ def check_against_f64(model, args, prepared, phases: Phases, label: str
         cls_errs.append(float((got_cls - want_cls).abs()[real].max()))
         box_errs.append(float((got_boxes - want_boxes).abs()[real].max()))
         box_scale = max(box_scale, float(want_boxes.abs()[real].max()))
+    return cls_errs, box_errs, box_scale, finite, changed
+
+
+def check_against_f64(model, args, prepared, phases: Phases, label: str,
+                      keep_from_card: bool = False) -> Dict[str, float]:
+    """``f64_errors`` printed and held: pred_cls within TOL, boxes within
+    TOL * max(1, max |box|).  Returns the largest errors."""
+    t0 = time.perf_counter()
+    cls_errs, box_errs, box_scale, finite, changed = f64_errors(
+        model, args, prepared, keep_from_card)
     largest = prepared[-1]["tb"]
     print(f"    {label} on the card vs float64 on the CPU, per eval batch "
           f"(buckets {[int(e['tb']['seq'].shape[1]) for e in prepared]}, "
@@ -706,7 +745,10 @@ def check_against_f64(model, args, prepared, phases: Phases, label: str
           f"{largest['lens'].tolist()}): pred_cls max abs err "
           f"{[float(f'{e:.3e}') for e in cls_errs]}; boxes "
           f"{[float(f'{e:.3e}') for e in box_errs]} (max |box| "
-          f"{box_scale:.1f})")
+          f"{box_scale:.1f}); {time.perf_counter() - t0:.1f} s")
+    if keep_from_card:
+        print(f"    {label}: the float64 run took the card's keep sets; its "
+              f"own selection would change {changed} entries per batch")
     phases.check(finite and max(cls_errs) <= TOL,
                  f"{label}: pred_cls within {TOL:g} of float64 on every "
                  f"eval batch")
@@ -790,15 +832,30 @@ def check_headline(flash, phases: Phases, records, train_videos,
                     nms_ms, n_boxes)
 
 
+def train_batches(args, train_videos, device, batch_size: int = 4):
+    """The training videos' batches per length bucket, on ``device``,
+    shortest bucket first."""
+    from edsnet_torch import trainer
+    from edsnet_torch.data import batching
+
+    items = batching.prepare_items(
+        train_videos, args.model, anchor_scales=args.anchor_scales,
+        pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
+        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size)
+    return sorted((trainer.to_device(b, device) for b in
+                   batching.batch_items(items, batch_size,
+                                        args.bucket_size, shuffle=False)),
+                  key=lambda b: b["seq"].shape[1])
+
+
 def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
                  smi: str) -> None:
     """Each other token mixer at F 1024, 8 heads, the CLI default scales:
-    predict over the eval batches, each against float64, one train
-    step per bucket (loss finite, every parameter moved, buffers
+    predict over the eval batches, each against float64 (the gcn's float64
+    run on the card's keep sets), one train step per bucket (loss finite,
+    every trainable parameter moved, frozen parameters and buffers
     bit-identical), predict and train-step times, no kernel launch."""
     from edsnet_torch import config as config_lib
-    from edsnet_torch import trainer
-    from edsnet_torch.data import batching
     from edsnet_torch.models.common import set_dropout_generator
     from edsnet_torch.parallel import steps
     from edsnet_torch.parallel.eval_device import prepare_eval_batches
@@ -809,15 +866,7 @@ def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
                                           str(seed)])
     prepared = prepare_eval_batches(records, 4, base_args.bucket_size,
                                     device)
-    items = batching.prepare_items(
-        train_videos, base_args.model, anchor_scales=base_args.anchor_scales,
-        pos_iou=base_args.pos_iou_thresh, neg_iou=base_args.neg_iou_thresh,
-        inc_iou=base_args.incomplete_iou_thresh,
-        bucket_size=base_args.bucket_size)
-    batches = sorted((trainer.to_device(b, device) for b in
-                      batching.batch_items(items, 4, base_args.bucket_size,
-                                           shuffle=False)),
-                     key=lambda b: b["seq"].shape[1])
+    batches = train_batches(base_args, train_videos, device)
     kw = dict(lambda_reg=base_args.lambda_reg,
               neg_ratio=base_args.neg_sample_ratio,
               inc_ratio=base_args.incomplete_sample_ratio)
@@ -825,7 +874,8 @@ def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
         args = config_lib.get_arguments(["anchor-based", "--base-model", base,
                                          "--seed", str(seed)])
         model = seeded_model(args, device).eval()
-        n_params = sum(p.numel() for p in model.parameters())
+        n_params = sum(p.numel() for p in model.parameters()
+                       if p.requires_grad)
         with torch.inference_mode():
             cls = [model.predict(e["tb"]["seq"], e["tb"]["mask"])[0][
                 e["tb"]["mask"].repeat_interleave(len(model.scales), dim=1)]
@@ -837,7 +887,8 @@ def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
                      f"{base} ({n_params} parameters): pred_cls in [0, 1] "
                      f"at the real positions of all {len(prepared)} eval "
                      f"batches")
-        check_against_f64(model, args, prepared, phases, base)
+        check_against_f64(model, args, prepared, phases, base,
+                          keep_from_card=base == "gcn")
 
         set_dropout_generator(model, torch.Generator(device).manual_seed(
             seed + 1))
@@ -845,25 +896,31 @@ def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
         optimizer = steps.make_optimizer(model.parameters(), args.lr,
                                          args.weight_decay)
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
-        buffers = {n: b.clone() for n, b in model.named_buffers()}
+        fixed = {n: b.clone() for n, b in model.named_buffers()}
+        fixed.update((n, p.detach().clone())
+                     for n, p in model.named_parameters()
+                     if not p.requires_grad)
         losses = torch.stack([steps.ab_train_step(model, optimizer, b, gen,
                                                   **kw)["loss"]
                               for b in batches]).cpu()
-        moved = sum(not torch.equal(params[n], p)
-                    for n, p in model.named_parameters())
-        kept = all(torch.equal(buffers[n], b) for n, b in
-                   model.named_buffers())
+        trainable = [(n, p) for n, p in model.named_parameters()
+                     if p.requires_grad]
+        moved = sum(not torch.equal(params[n], p) for n, p in trainable)
+        state = dict(model.state_dict())
+        kept = all(torch.equal(fixed[n], state[n]) for n in fixed)
+        want_fixed = {"performer": 1, "lstm": 1, "bilstm": 2}.get(base, 0)
         print(f"    {base}: one step per bucket "
               f"{[int(b['seq'].shape[1]) for b in batches]}, losses "
-              f"{[round(float(x), 4) for x in losses]}; buffers "
-              f"{sorted(buffers)}")
+              f"{[round(float(x), 4) for x in losses]}; buffers and frozen "
+              f"parameters {sorted(fixed)}")
         phases.check(bool(torch.isfinite(losses).all()),
                      f"{base}: every train step's loss is finite")
-        phases.check(moved == len(params),
-                     f"{base}: parameters changed ({moved}/{len(params)})")
-        phases.check(kept and len(buffers) == (base == "performer"),
-                     f"{base}: buffers bit-identical after training "
-                     f"{sorted(buffers)}")
+        phases.check(moved == len(trainable),
+                     f"{base}: trainable parameters changed "
+                     f"({moved}/{len(trainable)})")
+        phases.check(kept and len(fixed) == want_fixed,
+                     f"{base}: buffers and frozen parameters bit-identical "
+                     f"after training {sorted(fixed)}")
         step_ms = cuda_ms(lambda: steps.ab_train_step(
             model, optimizer, batches[-1], gen, **kw), iters=5, warmup=2)
         print(f"  [{smi}] {base}: predict ms per batch "
@@ -874,6 +931,146 @@ def check_mixers(flash, phases: Phases, records, train_videos, seed: int,
     counts = launch_counts(flash)
     phases.check(not any(counts.values()),
                  f"no kernel of the port launched by the other mixers "
+                 f"{counts}")
+
+
+def step_peak(step) -> Tuple[float, float]:
+    """(ms, peak GiB allocated) of one call of ``step`` on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_step_flags(flash, phases: Phases, records, train_videos,
+                     val_videos, seed: int, smi: str) -> None:
+    """The train-step flags on the headline (nystromformer, scale 12) and
+    on attention, at full width: --compute-dtype bfloat16 (one step per
+    bucket: losses finite, masters and Adam moments float32, every
+    trainable parameter moved; step ms and peak memory against float32),
+    --remat (one step at the largest bucket equal to the plain step's
+    updated parameters within 1e-6, peak memories), then the trainer with
+    both flags for one epoch, and --matmul-precision tensorfloat32 (TF32
+    switches on for the phase and restored after it, the headline's
+    pred_cls gap to float64, predict ms).  No kernel launches."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch.evaluate import setup
+    from edsnet_torch.models.common import set_dropout_generator
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import prepare_eval_batches
+
+    device = torch.device("cuda")
+    reset_launches(flash)
+    headline = ["--base-model", "nystromformer", "--anchor-scales", "12"]
+    for label, flags in (("nystromformer", headline), ("attention", [])):
+        args = config_lib.get_arguments(["anchor-based", *flags, "--seed",
+                                         str(seed)])
+        batches = train_batches(args, train_videos, device)
+        kw = dict(lambda_reg=args.lambda_reg,
+                  neg_ratio=args.neg_sample_ratio,
+                  inc_ratio=args.incomplete_sample_ratio)
+
+        def trained(**flag_kw):
+            """A seeded model, its optimizer and its generators."""
+            model = seeded_model(args, device)
+            set_dropout_generator(model, torch.Generator(device).manual_seed(
+                seed + 1))
+            gen = torch.Generator(device).manual_seed(seed + 2)
+            opt = steps.make_optimizer(model.parameters(), args.lr,
+                                       args.weight_decay)
+            return model, opt, lambda b: steps.ab_train_step(
+                model, opt, b, gen, **kw, **flag_kw)
+
+        times = {}
+        for dtype in ("float32", "bfloat16"):
+            model, opt, step = trained(compute_dtype=dtype)
+            init = {n: p.detach().clone() for n, p in model.named_parameters()}
+            losses = torch.stack([step(b)["loss"] for b in batches]).cpu()
+            times[dtype] = (cuda_ms(lambda: step(batches[-1]), iters=5,
+                                    warmup=2),
+                            step_peak(lambda: step(batches[-1]))[1])
+            if dtype == "float32":
+                continue
+            moments = [t for st in opt.state.values()
+                       for k, t in st.items() if k.startswith("exp_avg")]
+            phases.check(bool(torch.isfinite(losses).all()),
+                         f"{label} bfloat16: one step per bucket, losses "
+                         f"{[round(float(x), 4) for x in losses]} finite")
+            phases.check(all(p.dtype == torch.float32
+                             for p in model.parameters())
+                         and len(moments) == 2 * len(init)
+                         and all(t.dtype == torch.float32 for t in moments),
+                         f"{label} bfloat16: master parameters and Adam "
+                         f"moments float32 ({len(moments)} moments)")
+            moved = sum(not torch.equal(init[n], p)
+                        for n, p in model.named_parameters())
+            phases.check(moved == len(init),
+                         f"{label} bfloat16: parameters changed "
+                         f"({moved}/{len(init)})")
+        bucket = int(batches[-1]["seq"].shape[1])
+        print(f"  [{smi}] {label}: train step at bucket {bucket}, float32 "
+              f"{times['float32'][0]:.3f} ms, peak {times['float32'][1]:.3f}"
+              f" GiB; bfloat16 {times['bfloat16'][0]:.3f} ms, peak "
+              f"{times['bfloat16'][1]:.3f} GiB")
+
+        plain, _, plain_step = trained()
+        remat, _, remat_step = trained(remat=True)
+        plain_step(batches[-1])
+        remat_step(batches[-1])
+        gap = max(float((a - b).detach().abs().max()) for a, b in
+                  zip(plain.parameters(), remat.parameters()))
+        phases.check(gap <= 1e-6, f"{label} --remat: one step's updated "
+                                  f"parameters within 1e-6 of the plain "
+                                  f"step's ({gap:.3e})")
+        remat_peak = {name: (cuda_ms(lambda: fn(batches[-1]), iters=5,
+                                     warmup=1),
+                             step_peak(lambda: fn(batches[-1]))[1])
+                      for name, fn in (("plain", plain_step),
+                                       ("--remat", remat_step))}
+        print(f"  [{smi}] {label}: train step at bucket {bucket}, " + ", ".join(
+            f"{name} {ms:.3f} ms, peak {peak:.3f} GiB"
+            for name, (ms, peak) in remat_peak.items()))
+
+    flags_args = config_lib.get_arguments(
+        ["anchor-based", *headline, "--seed", str(seed), "--batch-size", "4",
+         "--max-epoch", "1", "--compute-dtype", "bfloat16", "--remat"])
+    print("  trainer.train_records with --compute-dtype bfloat16 --remat, "
+          "1 epoch:")
+    check_training(flash, phases, train_videos, val_videos, flags_args,
+                   expect_kernels=False)
+
+    tf32_args = config_lib.get_arguments(
+        ["anchor-based", *headline, "--seed", str(seed),
+         "--matmul-precision", "tensorfloat32"])
+    setup(tf32_args)
+    try:
+        on = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+        model = seeded_model(tf32_args, device).eval()
+        prepared = prepare_eval_batches(records, 4, tf32_args.bucket_size,
+                                        device)
+        cls_errs = f64_errors(model, tf32_args, prepared)[0]
+        with torch.inference_mode():
+            predict_ms = [cuda_ms(lambda: model.predict(e["tb"]["seq"],
+                                                        e["tb"]["mask"]),
+                                  iters=5) for e in prepared]
+    finally:
+        setup(config_lib.get_arguments(["anchor-based"]))
+    off = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    print(f"  [{smi}] nystromformer --matmul-precision tensorfloat32: "
+          f"pred_cls max abs err vs float64 per eval batch "
+          f"{[float(f'{e:.3e}') for e in cls_errs]}; predict ms per batch "
+          f"{[round(t, 3) for t in predict_ms]}")
+    phases.check(on == (True, True) and off == (False, False),
+                 f"TF32 switches (cuBLAS, cuDNN) {on} in the phase, {off} "
+                 f"after it")
+    counts = launch_counts(flash)
+    phases.check(not any(counts.values()),
+                 f"no kernel of the port launched by the train-step flags "
                  f"{counts}")
 
 
@@ -1061,6 +1258,9 @@ def main() -> int:
                    opts.seed, smi)
     print("phase: the other token mixers at full width")
     check_mixers(flash, phases, records, train_videos, opts.seed, smi)
+    print("phase: the train-step flags at full width")
+    check_step_flags(flash, phases, records, train_videos, val_videos,
+                     opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1

@@ -20,7 +20,6 @@ import torch
 from edsnet_torch import config as config_lib
 from edsnet_torch.data.dataset import (AverageMeter, VideoDataset,
                                        get_ckpt_path, load_yaml)
-from edsnet_torch.models.base import NOT_PORTED
 from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.parallel.eval_device import evaluate_on_device
 from edsnet_torch.utils import checkpoint as ckpt_lib
@@ -48,24 +47,22 @@ def _todo(flag, item):
 
 
 def check_model_supported(args) -> None:
-    """Raise for model and device-layout flags that no CLI of this port
-    serves yet."""
+    """Raise for model, precision and device-layout flags that no CLI of
+    this port serves yet."""
     if args.context_parallel:
         _todo("--context-parallel", 13)
     if args.tensor_parallel > 1:
         _todo("--tensor-parallel", 13)
     if args.num_devices > 1:
         _todo("--num-devices > 1", 13)
-    if args.untie_fc_blocks:
-        _todo("--untie-fc-blocks", 4)
     if args.model != "anchor-based":
         _todo(f"model type {args.model}", 9)
     if args.model_depth != "shallow":
         _todo(f"--model-depth {args.model_depth}", 10)
     if args.pooling_type != "roi":
         _todo(f"--pooling-type {args.pooling_type}", 10)
-    if args.base_model in NOT_PORTED:
-        _todo(f"--base-model {args.base_model}", 11)
+    if args.matmul_precision == "bfloat16":
+        _todo("--matmul-precision bfloat16", 14)
 
 
 def check_supported(args) -> None:
@@ -80,10 +77,6 @@ def check_supported(args) -> None:
 def check_train_supported(args) -> None:
     """Raise for flags whose paths the train CLI does not serve yet."""
     check_model_supported(args)
-    if args.compute_dtype == "bfloat16":
-        _todo("--compute-dtype bfloat16", 4)
-    if args.remat:
-        _todo("--remat", 4)
     if args.resume:
         _todo("--resume", 6)
     if args.state_save_every:
@@ -94,14 +87,22 @@ def check_train_supported(args) -> None:
         _todo("--host-eval", 6)
 
 
+# --matmul-precision values that allow TF32 (JAX's jax_default_matmul_
+# precision on the GPU); float32, highest and no flag keep full f32
+TF32_PRECISIONS = ("tensorfloat32", "high", "default")
+
+
 def setup(args, check=check_supported) -> torch.device:
     """Entry-point setup shared by the CLIs: the CLI's ``check`` of its
-    flags, device, f32 matmuls."""
+    flags, the device, and the precision of f32 products from
+    ``--matmul-precision``: cuBLAS's and cuDNN's TF32 switches both on for
+    ``TF32_PRECISIONS``, both off otherwise, so that results compare with
+    f32 references.  The flash kernels keep their own ``precision``."""
     check(args)
     device = resolve_device(args.device)
-    # full-f32 products on the card, so results compare with f32 references
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = args.matmul_precision in TF32_PRECISIONS
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     return device
 
 

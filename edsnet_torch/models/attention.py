@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from edsnet_torch.kernels.flash_attention import HEAD_DIMS
-from edsnet_torch.models.common import Dropout, masked_softmax
+from edsnet_torch.models.common import Dropout, Linear, masked_softmax
 
 # Shortest sequence the flash route takes.  0 routes every deterministic
 # attention pass through the kernel: the JAX thresholds (1024 / 2048) come
@@ -71,10 +71,10 @@ class AttentionExtractor(nn.Module):
                              f"by num_head {num_head} (head split)")
         self.num_head = num_head
         self.use_flash = use_flash
-        self.Q = nn.Linear(num_feature, num_feature, bias=False)
-        self.K = nn.Linear(num_feature, num_feature, bias=False)
-        self.V = nn.Linear(num_feature, num_feature, bias=False)
-        self.fc = nn.Linear(num_feature, num_feature, bias=False)
+        self.Q = Linear(num_feature, num_feature, bias=False)
+        self.K = Linear(num_feature, num_feature, bias=False)
+        self.V = Linear(num_feature, num_feature, bias=False)
+        self.fc = Linear(num_feature, num_feature, bias=False)
         self.attn_dropout = Dropout(attn_dropout)
         self.out_dropout = Dropout(out_dropout)
 

@@ -1,10 +1,8 @@
 """Base-model (token-mixing backbone) factory.
 
 Counterpart of edsnet_tpu/models/base.py:build_base_model and
-``LinearExtractor`` for ``linear``, ``attention``, ``nystromformer``,
-``fourier``, ``linformer``, ``performer`` and ``dwt``, with the JAX
-factory's configurations.  ``lstm``, ``bilstm`` and ``gcn`` are not ported
-yet and raise.
+``LinearExtractor``: all 10 ``--base-model`` choices, with the JAX
+factory's configurations.
 
 The attention backbone's ``--use-pallas`` tri-state is passed in as
 ``use_pallas`` instead of set globally.  Each attention pass decides its
@@ -27,13 +25,14 @@ import torch
 from torch import nn
 
 from edsnet_torch.models.attention import AttentionExtractor
+from edsnet_torch.models.common import Linear
 from edsnet_torch.models.dwt_net import DwtNet
 from edsnet_torch.models.fnet import FNetLayer
+from edsnet_torch.models.gcn import GCNExtractor
 from edsnet_torch.models.linformer import Linformer
+from edsnet_torch.models.lstm import BiLSTMExtractor, LSTMExtractor
 from edsnet_torch.models.nystromformer import NystromAttention
 from edsnet_torch.models.performer import Performer
-
-NOT_PORTED = ("lstm", "bilstm", "gcn")   # the --base-model choices left
 
 
 class LinearExtractor(nn.Module):
@@ -41,7 +40,7 @@ class LinearExtractor(nn.Module):
 
     def __init__(self, num_feature: int):
         super().__init__()
-        self.linear = nn.Linear(num_feature, num_feature)
+        self.linear = Linear(num_feature, num_feature)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -72,8 +71,10 @@ def build_base_model(base_type: str, num_feature: int, num_head: int,
         return LinearExtractor(num_feature)
     if base_type == "attention":
         return AttentionExtractor(num_head, num_feature, use_flash=use_pallas)
-    if base_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"--base-model {base_type} is not ported yet (ROADMAP.md Queue A "
-            f"item 11)")
+    if base_type == "lstm":
+        return LSTMExtractor(num_feature)
+    if base_type == "bilstm":
+        return BiLSTMExtractor(num_feature)
+    if base_type == "gcn":
+        return GCNExtractor(num_feature)
     raise ValueError(f"Invalid base model {base_type}")

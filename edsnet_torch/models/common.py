@@ -1,23 +1,62 @@
-"""Shared model utilities: init scheme, masked primitives, dropout with an
-explicit generator, the fc block.
+"""Shared model utilities: init scheme, dtype promotion, masked primitives,
+dropout with an explicit generator, the fc block.
 
 Init matches edsnet_tpu/models/common.py (the reference trainer's re-init):
 xavier-uniform with gain sqrt(2) on every Linear weight, constant 0.1 bias,
 LayerNorm weight 1 and bias 0 with eps 1e-5.  A module with raw parameters
 or buffers of its own (the nystromformer's ``res_conv``, Linformer's
 ``proj_k`` / ``proj_v``, the DWT net's transposed conv, Performer's
-``projection``) draws them in its ``init_leaves(generator)``.
+``projection``, the LSTM cells, the GCN's ``bias``) draws them in its
+``init_leaves(generator)``.
+
+Dtypes follow JAX's promotion, not torch's refusals: a product or a norm
+whose operands differ (float32 activations meeting bfloat16 weights under
+``--compute-dtype bfloat16``, or a float32 constant meeting bfloat16 data)
+runs in their common dtype, as flax's ``promote_dtype`` and jnp's binary
+ops do.  ``Linear`` and ``LayerNorm`` do that for every layer of the port;
+``promote`` does it at the other products.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
+
+
+def promote(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common dtype (bfloat16 with float32 ->
+    float32), as jnp promotes the operands of a product."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return tuple(t.to(dtype) for t in tensors)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` on its input and parameters promoted to their common
+    dtype, as flax's Dense computes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return F.linear(*promote(x, self.weight))
+        return F.linear(*promote(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5, the torch default the reference keeps)
+    on its input and parameters promoted to their common dtype, as flax's
+    LayerNorm computes."""
+
+    def __init__(self, num_feature: int):
+        super().__init__(num_feature, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
 def xavier2_(tensor: torch.Tensor, generator: torch.Generator,
@@ -110,9 +149,9 @@ class FcBlock(nn.Module):
     def __init__(self, in_features: int, num_hidden: int,
                  dropout: float = 0.5):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_features, num_hidden)
+        self.Dense_0 = Linear(in_features, num_hidden)
         self.dropout = Dropout(dropout)
-        self.LayerNorm_0 = nn.LayerNorm(num_hidden, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(num_hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm_0(self.dropout(torch.relu(self.Dense_0(x))))
@@ -129,11 +168,11 @@ class PreNormStack(nn.Module):
         super().__init__()
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"attn_norm_{i}", nn.LayerNorm(dim, eps=LN_EPS))
+            self.add_module(f"attn_norm_{i}", LayerNorm(dim))
             self.add_module(f"attn_{i}", make_attention())
-            self.add_module(f"ff_norm_{i}", nn.LayerNorm(dim, eps=LN_EPS))
-            self.add_module(f"ff1_{i}", nn.Linear(dim, mlp_dim))
-            self.add_module(f"ff2_{i}", nn.Linear(mlp_dim, dim))
+            self.add_module(f"ff_norm_{i}", LayerNorm(dim))
+            self.add_module(f"ff1_{i}", Linear(dim, mlp_dim))
+            self.add_module(f"ff2_{i}", Linear(mlp_dim, dim))
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None

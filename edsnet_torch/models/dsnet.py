@@ -1,8 +1,8 @@
 """Anchor-based DSNet head (shallow depth, ROI pooling), batched + masked.
 
-Counterpart of edsnet_tpu/models/dsnet.py: ``_decode_predictions``, the
-weight-tied ``_FcTrunk``, ``_AnchorHeads.fused_roi`` and ``DSNet``.
-Submodule names follow the flax param tree so the weight bridge
+Counterpart of edsnet_tpu/models/dsnet.py: ``_decode_predictions``,
+``_FcTrunk`` (weight-tied by default), ``_AnchorHeads.fused_roi`` and
+``DSNet``.  Submodule names follow the flax param tree so the weight bridge
 (convert.py) maps names one to one.
 """
 from __future__ import annotations
@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from edsnet_torch.models.base import build_base_model
-from edsnet_torch.models.common import LN_EPS, FcBlock, apply_mask
+from edsnet_torch.models.common import (FcBlock, LayerNorm, Linear,
+                                        apply_mask, promote)
 from edsnet_torch.models.poolings import roi_multi_scale
 from edsnet_torch.ops.anchors import anchor_scales_list, get_anchors
 
@@ -35,18 +36,27 @@ def _decode_predictions(pred_cls: torch.Tensor, pred_loc: torch.Tensor,
 
 
 class _FcTrunk(nn.Module):
-    """fc1 -> fc_depth x one shared fc_block (the reference's tied trunk)."""
+    """fc1 -> fc_depth x fc_block: one shared ``fc_block`` (the reference's
+    tied trunk), or ``fc_block_{i}`` each its own when untied."""
 
-    def __init__(self, num_feature: int, num_hidden: int, fc_depth: int):
+    def __init__(self, num_feature: int, num_hidden: int, fc_depth: int,
+                 tie_fc_blocks: bool = True):
         super().__init__()
-        self.fc_depth = fc_depth
-        self.fc1 = nn.Linear(num_feature, num_hidden)
-        self.fc_block = FcBlock(num_hidden, num_hidden)
+        self.fc1 = Linear(num_feature, num_hidden)
+        if tie_fc_blocks:
+            self.fc_block = FcBlock(num_hidden, num_hidden)
+            self.blocks = [self.fc_block] * fc_depth
+        else:
+            for i in range(fc_depth):
+                self.add_module(f"fc_block_{i}",
+                                FcBlock(num_hidden, num_hidden))
+            self.blocks = [getattr(self, f"fc_block_{i}")
+                           for i in range(fc_depth)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.fc1(x)
-        for _ in range(self.fc_depth):
-            x = self.fc_block(x)
+        for block in self.blocks:
+            x = block(x)
         return x
 
 
@@ -57,13 +67,13 @@ class _AnchorHeads(nn.Module):
 
     def __init__(self, num_hidden: int):
         super().__init__()
-        self.fc_cls = nn.Linear(num_hidden, 1)
-        self.fc_loc = nn.Linear(num_hidden, 2)
+        self.fc_cls = Linear(num_hidden, 1)
+        self.fc_loc = Linear(num_hidden, 2)
 
     def fused_roi(self, out: torch.Tensor, scales: Sequence[int]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        zc = F.linear(out, self.fc_cls.weight)
-        zl = F.linear(out, self.fc_loc.weight)
+        zc = F.linear(*promote(out, self.fc_cls.weight))
+        zl = F.linear(*promote(out, self.fc_loc.weight))
         pooled = roi_multi_scale(torch.cat([zc, zl], dim=-1), scales)
         pred_cls = torch.sigmoid(pooled[..., 0] + self.fc_cls.bias[0])
         pred_loc = pooled[..., 1:] + self.fc_loc.bias
@@ -71,13 +81,14 @@ class _AnchorHeads(nn.Module):
 
 
 class DSNet(nn.Module):
-    """The EDSNet anchor-based head, shallow depth, ROI pooling."""
+    """The EDSNet anchor-based head, shallow depth, ROI pooling;
+    ``tie_fc_blocks`` as ``_FcTrunk``'s."""
 
     def __init__(self, base_model: str, num_feature: int, num_hidden: int,
                  anchor_scales: Sequence[int], num_head: int,
                  fc_depth: int = 5, pooling_type: str = "roi",
                  use_pallas: Optional[bool] = None,
-                 orientation: str = "paper"):
+                 orientation: str = "paper", tie_fc_blocks: bool = True):
         super().__init__()
         if pooling_type != "roi":
             raise NotImplementedError(
@@ -86,8 +97,9 @@ class DSNet(nn.Module):
         self.scales = anchor_scales_list(anchor_scales)
         self.base_model = build_base_model(base_model, num_feature, num_head,
                                            use_pallas, orientation)
-        self.layer_norm = nn.LayerNorm(num_feature, eps=LN_EPS)
-        self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth)
+        self.layer_norm = LayerNorm(num_feature)
+        self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth,
+                              tie_fc_blocks)
         self.heads = _AnchorHeads(num_hidden)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None

@@ -14,17 +14,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edsnet_torch.models.common import (LN_EPS, Dropout, apply_mask,
-                                        xavier2_flax_)
+from edsnet_torch.models.common import (Dropout, LayerNorm, Linear,
+                                        apply_mask, xavier2_flax_)
 from edsnet_torch.ops.dwt import haar_dwt
 
 
 class DwtNet(nn.Module):
     def __init__(self, num_feature: int, dropout: float = 0.5):
         super().__init__()
-        self.fc = nn.Linear(num_feature, num_feature)
+        self.fc = Linear(num_feature, num_feature)
         self.dropout = Dropout(dropout)
-        self.norm = nn.LayerNorm(num_feature, eps=LN_EPS)
+        self.norm = LayerNorm(num_feature)
         self.transconv_kernel = nn.Parameter(torch.empty(2, 1, 1))
         self.transconv_bias = nn.Parameter(torch.empty(1))
         self.init_leaves(torch.Generator().manual_seed(0))

@@ -11,6 +11,11 @@ is transformed at its true length n: Re(DFT_n) is a per-video (L, L)
 cos/sin matrix applied to the time axis, so every real position equals
 the unpadded computation; padded rows are garbage that the heads mask.
 The channel FFT has a static length and keeps ``torch.fft``.
+
+Dtypes as in JAX: an FFT of bfloat16 data runs in complex64 (``jnp.fft``
+upcasts), and the bfloat16 DFT matrices meet its float32 parts in float32
+products, so under ``--compute-dtype bfloat16`` the 'paper' and
+'feature_wise' mixes return float32 and the masked 'temporal' one bfloat16.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from edsnet_torch.models.common import LN_EPS, Dropout, apply_mask
+from edsnet_torch.models.common import (Dropout, LayerNorm, Linear,
+                                        apply_mask, promote)
 
 _TWO_PI = 6.283185307179586
 
@@ -41,25 +47,33 @@ def _dft_mats(lengths: torch.Tensor, n: int, dtype: torch.dtype
     return cos, sin
 
 
+def _fft(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.fft.fft`` in at least complex64, as ``jnp.fft.fft``."""
+    return torch.fft.fft(x.to(torch.promote_types(x.dtype, torch.float32)),
+                         dim=dim)
+
+
 def fft_mix(x: torch.Tensor, orientation: str,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, N, F] (mask [B, N] bool) -> the real Fourier mix [B, N, F]."""
     if orientation == "feature_wise":
-        return torch.fft.fft(x, dim=-1).real
+        return _fft(x, -1).real
     if orientation not in ("temporal", "paper"):
         raise ValueError(f"Invalid fft orientation {orientation}")
 
     if mask is None:
         if orientation == "temporal":
-            return torch.fft.fft(x, dim=-2).real
-        return torch.fft.fft(torch.fft.fft(x, dim=-1), dim=-2).real
+            return _fft(x, -2).real
+        return torch.fft.fft(_fft(x, -1), dim=-2).real
 
     lengths = mask.to(torch.int64).sum(dim=-1)
     cos, sin = _dft_mats(lengths, x.shape[1], x.dtype)
     if orientation == "temporal":
         return cos @ x                                      # Re(DFT_n x)
-    z = torch.fft.fft(x, dim=-1)                            # channel FFT first
-    return cos @ z.real + sin @ z.imag                      # Re(DFT_n z)
+    z = _fft(x, -1)                                         # channel FFT first
+    # Re(DFT_n z)
+    return torch.matmul(*promote(cos, z.real)) \
+        + torch.matmul(*promote(sin, z.imag))
 
 
 class FNetLayer(nn.Module):
@@ -69,10 +83,10 @@ class FNetLayer(nn.Module):
                  orientation: str = "paper"):
         super().__init__()
         self.orientation = orientation
-        self.skip_norm = nn.LayerNorm(num_feature, eps=LN_EPS)
-        self.fc = nn.Linear(num_feature, num_feature)
+        self.skip_norm = LayerNorm(num_feature)
+        self.fc = Linear(num_feature, num_feature)
         self.dropout = Dropout(dropout)
-        self.out_norm = nn.LayerNorm(num_feature, eps=LN_EPS)
+        self.out_norm = LayerNorm(num_feature)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:

@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from edsnet_torch.models.common import Dropout, PreNormStack, apply_mask
+from edsnet_torch.models.common import (Dropout, Linear, PreNormStack,
+                                        apply_mask)
 
 
 class LinformerSelfAttention(nn.Module):
@@ -27,12 +28,12 @@ class LinformerSelfAttention(nn.Module):
         self.seq_len, self.k = seq_len, k
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(dim, inner, bias=False)
+        self.to_v = Linear(dim, inner, bias=False)
         self.proj_k = nn.Parameter(torch.empty(seq_len, k))
         self.proj_v = nn.Parameter(torch.empty(seq_len, k))
-        self.to_out = nn.Linear(inner, dim)
+        self.to_out = Linear(inner, dim)
         self.dropout = Dropout(dropout)
         self.init_leaves(torch.Generator().manual_seed(0))
 

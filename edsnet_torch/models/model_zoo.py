@@ -2,14 +2,22 @@
 
 Counterpart of edsnet_tpu/models/model_zoo.py:get_model /
 get_anchor_based.  This slice serves the anchor-based shallow head.
+
+``--untie-fc-blocks`` does not reach the model, as in the reference, whose
+``get_anchor_based`` never passes ``tie_fc_blocks`` to ``DSNet``: the CLIs
+build the tied trunk whatever the flag says, and say so in the log.
+Untied blocks exist at the module level (``DSNet(tie_fc_blocks=False)``).
 """
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 from torch import nn
 
 from edsnet_torch.models.dsnet import DSNet
+
+logger = logging.getLogger(__name__)
 
 MODEL_DEPTHS = ("shallow", "deep", "local-global-attention", "original",
                 "cross-attention")
@@ -18,10 +26,15 @@ MODEL_DEPTHS = ("shallow", "deep", "local-global-attention", "original",
 def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, model_depth="shallow",
                      use_pallas: Optional[bool] = None,
-                     orientation: str = "paper", **kwargs) -> nn.Module:
+                     orientation: str = "paper", untie_fc_blocks=False,
+                     **kwargs) -> nn.Module:
     """``use_pallas``: the --use-pallas / --no-pallas tri-state (None =
     auto), see models/base.py; ``orientation``: the fourier backbone's
-    --fft-attention-orientation."""
+    --fft-attention-orientation; ``untie_fc_blocks`` is only logged."""
+    if untie_fc_blocks:
+        logger.warning("--untie-fc-blocks: the trunk stays tied; the flag "
+                       "does not reach the model in edsnet_tpu either "
+                       "(its get_anchor_based never passes tie_fc_blocks)")
     if model_depth == "shallow":
         return DSNet(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, use_pallas,

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from edsnet_torch.models.common import xavier2_flax_
+from edsnet_torch.models.common import Linear, xavier2_flax_
 from edsnet_torch.ops.depthwise_conv import depthwise_time_conv
 
 NEG = -1e30
@@ -118,10 +118,10 @@ class NystromAttention(nn.Module):
         self.num_landmarks = num_landmarks
         self.pinv_iterations = pinv_iterations
         inner = heads * dim_head
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.to_qkv = Linear(dim, inner * 3, bias=False)
         self.res_conv = nn.Parameter(
             torch.empty(heads, 1, residual_conv_kernel, 1))
-        self.to_out = nn.Linear(inner, dim)
+        self.to_out = Linear(inner, dim)
         self.init_leaves(torch.Generator().manual_seed(0))
 
     def init_leaves(self, generator: torch.Generator) -> None:

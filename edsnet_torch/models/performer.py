@@ -13,6 +13,10 @@ weight decay touches it).
 Masking: the key stabilizer is the max over each video's valid (head,
 position, feature) entries, and feature-mapped keys and values are zeroed
 at invalid positions, so a padded bucket equals the unpadded computation.
+
+Dtypes as in JAX: ``projection`` stays float32 under ``--compute-dtype
+bfloat16`` (it is a constant, not a parameter), so the feature maps and
+everything after them run in float32 and the block returns float32.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from edsnet_torch.models.common import PreNormStack
+from edsnet_torch.models.common import Linear, PreNormStack, promote
 
 
 def orthogonal_gaussian(generator: torch.Generator, nb_rows: int,
@@ -54,7 +58,7 @@ def softmax_kernel(data: torch.Tensor, projection: torch.Tensor,
     the video's valid (h, n, feature) entries, 0 for an all-padding row."""
     normalizer = data.shape[-1] ** -0.25
     ratio = projection.shape[0] ** -0.5
-    data_dash = (normalizer * data) @ projection.T
+    data_dash = torch.matmul(*promote(normalizer * data, projection.T))
     diag = (data ** 2).sum(dim=-1, keepdim=True) * 0.5 * normalizer ** 2
     if is_query:
         stab = data_dash.amax(dim=-1, keepdim=True)
@@ -70,7 +74,8 @@ def softmax_kernel(data: torch.Tensor, projection: torch.Tensor,
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Non-causal O(N) attention over feature maps, keys and values
-    zeroed at masked positions."""
+    zeroed at masked positions; in the operands' common dtype."""
+    q, k, v = promote(q, k, v)
     if mask is not None:
         mf = mask[:, None, :, None].to(q.dtype)
         k, v = k * mf, v * mf
@@ -90,10 +95,10 @@ class FastSelfAttention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.nb_features = int(dim_head * math.log(dim_head))
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = Linear(dim, inner)
+        self.to_k = Linear(dim, inner)
+        self.to_v = Linear(dim, inner)
+        self.to_out = Linear(inner, dim)
         self.register_buffer("projection",
                              torch.empty(self.nb_features, dim_head))
         self.init_leaves(torch.Generator().manual_seed(0))

@@ -13,14 +13,17 @@ import torch
 
 
 def roi_avg_pool(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """(B, N, H) -> (B, N, H) stride-1 avg pool, zero padded."""
+    """(B, N, H) -> (B, N, H) stride-1 avg pool, zero padded.  The prefix
+    sums run in at least f32 and the result is cast back to x's dtype: a
+    bfloat16 prefix sum would lose the window's low bits."""
     b, n, h = x.shape
-    pad = x.new_zeros((b, scale, h))
-    cs = torch.cumsum(torch.cat([pad, x, pad], dim=1), dim=1)
-    cs = torch.cat([x.new_zeros((b, 1, h)), cs], dim=1)
+    acc = x.to(torch.promote_types(x.dtype, torch.float32))
+    pad = acc.new_zeros((b, scale, h))
+    cs = torch.cumsum(torch.cat([pad, acc, pad], dim=1), dim=1)
+    cs = torch.cat([acc.new_zeros((b, 1, h)), cs], dim=1)
     lo = torch.arange(n, device=x.device) - scale // 2 + scale
     window_sum = cs[:, lo + scale, :] - cs[:, lo, :]
-    return window_sum / scale
+    return (window_sum / scale).to(x.dtype)
 
 
 def roi_multi_scale(x: torch.Tensor, scales: Sequence[int]) -> torch.Tensor:

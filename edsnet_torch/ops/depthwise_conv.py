@@ -8,10 +8,13 @@ weight, the layout of the flax ``res_conv`` param.  The backward is
 written out as JAX's is: dv the same conv with the kernel flipped, dw the
 filter gradient.
 
-Every conv here runs with cuDNN's TF32 off, whatever the process-wide
-``torch.backends.cudnn.allow_tf32`` says (it defaults to on): TF32
-operands would carry ~1e-3 relative error into a residual the port holds
-to f32.
+Every conv here, forward and backward, follows ``--matmul-precision`` as
+the products around it do: it runs with cuDNN's TF32 switch set to
+cuBLAS's, ``torch.backends.cuda.matmul.allow_tf32`` (off unless the flag
+asks for TF32; JAX's matmul precision reaches its convs too), whatever
+``torch.backends.cudnn.allow_tf32`` says (it defaults to on outside the
+CLIs): TF32 operands would carry ~1e-3 relative error into a residual the
+port otherwise holds to f32.
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def _cudnn_f32():
-    """cuDNN convs in full f32 inside the block, the flag restored after."""
+def _cudnn_as_matmul():
+    """cuDNN's TF32 switch set to cuBLAS's inside the block, restored
+    after."""
     saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
         yield
     finally:
@@ -41,7 +45,7 @@ class _DepthwiseTimeConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, w):
         ctx.save_for_backward(v, w)
-        with _cudnn_f32():
+        with _cudnn_as_matmul():
             return _correlate(v, w)
 
     @staticmethod
@@ -49,7 +53,7 @@ class _DepthwiseTimeConv(torch.autograd.Function):
         v, w = ctx.saved_tensors
         h, k = w.shape
         dv = dw = None
-        with _cudnn_f32():
+        with _cudnn_as_matmul():
             if ctx.needs_input_grad[0]:
                 dv = _correlate(g, w.flip(1))
             if ctx.needs_input_grad[1]:

@@ -8,14 +8,27 @@ device and returns its losses as device tensors: nothing in it waits for
 the device.  The model runs in training mode, so the attention backbone
 takes its dense path with dropout on the attention map, as the TPU
 package's step does.
+
+``compute_dtype="bfloat16"`` is JAX's mixed precision: the forward runs
+on a bfloat16 copy of the float parameters (buffers, like Performer's
+``projection``, stay float32, as JAX's ``constants`` do) and on the input
+cast to bfloat16, its outputs are cast to float32, and the gradients reach
+the float32 masters through the cast; losses and Adam stay float32.
+Products whose operands end up mixed run in float32, as in JAX
+(models/common.py:promote).  ``remat`` recomputes the forward in the
+backward (``torch.utils.checkpoint``), replaying the dropout generators'
+states so that the recomputation draws the same masks.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from edsnet_torch.models.common import Dropout
 from edsnet_torch.ops import losses as L
 
 
@@ -80,10 +93,62 @@ def build_ab_cls_labels(batch: Dict, generator: Optional[torch.Generator],
     return torch.where(neg | inc, -1, batch["cls_pos"])
 
 
+def _dropout_replay(model: nn.Module):
+    """``checkpoint``'s ``context_fn``: the first pass saves the states of
+    the model's dropout generators, the recomputation starts from them and
+    leaves them as the first pass did."""
+    gens = list({id(m.generator): m.generator for m in model.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+    saved = []
+
+    @contextlib.contextmanager
+    def first_pass():
+        saved[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, after):
+                g.set_state(state)
+
+    return lambda: (first_pass(), recompute())
+
+
+def train_forward(model: nn.Module, x: torch.Tensor, mask: torch.Tensor,
+                  remat: bool = False, compute_dtype: str = "float32"
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The model's outputs on (x, mask) in float32, computed in
+    ``compute_dtype`` and recomputed in the backward if ``remat``."""
+    dtype = getattr(torch, compute_dtype)
+
+    def run(x):
+        if dtype == torch.float32:
+            out = model(x, mask)
+        else:
+            params = {n: p.to(dtype) if p.is_floating_point() else p
+                      for n, p in model.named_parameters()}
+            out = torch.func.functional_call(model, params,
+                                             (x.to(dtype), mask))
+        return tuple(t.to(torch.float32) for t in out)
+
+    if not remat:
+        return run(x)
+    return checkpoint(run, x, use_reentrant=False,
+                      context_fn=_dropout_replay(model))
+
+
 def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   batch: Dict, generator: Optional[torch.Generator], *,
                   lambda_reg: float, neg_ratio: float, inc_ratio: float,
-                  cls_label: Optional[torch.Tensor] = None
+                  cls_label: Optional[torch.Tensor] = None,
+                  remat: bool = False, compute_dtype: str = "float32"
                   ) -> Dict[str, torch.Tensor]:
     """One step over a padded batch -> {loss, cls_loss, loc_loss} as
     device scalars.
@@ -91,7 +156,8 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     Labels are sampled with ``generator`` unless ``cls_label`` [B, N, S]
     is given.  Per-video losses are weighted by ``video_valid & num_pos >
     0`` over ``max(sum of weights, 1)``.  Dropout draws from the model's
-    own generators (models/common.py:set_dropout_generator)."""
+    own generators (models/common.py:set_dropout_generator).  ``remat``
+    and ``compute_dtype`` as in the module docstring."""
     batch = resolve_batch(batch)
     if cls_label is None:
         cls_label = build_ab_cls_labels(batch, generator, neg_ratio,
@@ -100,7 +166,8 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     denom = torch.clamp(w.sum(), min=1.0)
 
     model.train()
-    pred_cls, pred_loc = model(batch["seq"], batch["mask"])
+    pred_cls, pred_loc = train_forward(model, batch["seq"], batch["mask"],
+                                       remat, compute_dtype)
     loc = L.ab_loc_loss(pred_loc, batch["loc_label"], cls_label)
     cls = L.ab_cls_loss(pred_cls, cls_label)
     loss = ((cls + lambda_reg * loc) * w).sum() / denom

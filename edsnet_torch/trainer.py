@@ -71,9 +71,14 @@ def train_records(args, train_videos: Sequence[VideoRecord],
     """Train on ``train_videos``, validate on ``val_videos`` and write the
     best checkpoint to ``save_path`` -> (max_val_fscore, f1_list,
     epoch_list)."""
-    # --compute-dtype auto means float32 here: the TPU package picks bf16
-    # only on a TPU backend, and bf16 itself is refused by the check
     device = setup(args, check_train_supported)
+    # --compute-dtype auto means float32 here: the TPU package picks bf16
+    # only on a TPU backend
+    compute_dtype = ("float32" if args.compute_dtype == "auto"
+                     else args.compute_dtype)
+    if compute_dtype != "float32":
+        logger.info(f"compute dtype: {compute_dtype} "
+                    f"(--compute-dtype float32 to opt out)")
     model = get_model(args.model, **vars(args))
     init_weights(model, torch.Generator().manual_seed(args.seed))
     model = model.to(device)
@@ -157,7 +162,8 @@ def train_records(args, train_videos: Sequence[VideoRecord],
             epoch_metrics.append(ab_train_step(
                 model, optimizer, batch, label_gen,
                 lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
-                inc_ratio=args.incomplete_sample_ratio))
+                inc_ratio=args.incomplete_sample_ratio, remat=args.remat,
+                compute_dtype=compute_dtype))
             timer.stop(frames)
 
         time_list.append(time.time() - start)

@@ -2,9 +2,9 @@
 edsnet_tpu: one anchor-based train step from the same weights and the same
 injected labels (loss, every gradient and every updated parameter to
 1e-5; Performer's ``projection`` untouched), per-video F of the device
-evaluator, the evaluate CLI on a JAX-written checkpoint (``constants``
-included), and the CLI train -> evaluate round trip on the nystromformer
-head."""
+evaluator, the evaluate CLI on a JAX-written checkpoint (``constants`` and
+LSTM cells included), and the CLI train -> evaluate round trip on the
+nystromformer head."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,7 +108,8 @@ def test_train_step_matches_jax(base, orientation):
     np.testing.assert_allclose(float(metrics["loss"]), float(loss), **TOL)
 
     got_grads = dict(_leaves(state_dict_to_flax(
-        {n: p.grad for n, p in model.named_parameters()})))
+        {n: p.grad for n, p in model.named_parameters()
+         if p.requires_grad})))
     got_params = dict(_leaves(state_dict_to_flax(model.state_dict())))
     for tree, got in ((grads, got_grads), (new_params, got_params)):
         want = dict(_leaves(tree))
@@ -127,7 +128,8 @@ def _records(videos, cls):
     return [cls(**v) for v in videos]
 
 
-@pytest.mark.parametrize("base", ["nystromformer", "performer"])
+@pytest.mark.parametrize("base", ["nystromformer", "performer", "lstm",
+                                  "gcn"])
 def test_device_eval_matches_jax_per_video(base):
     videos = _videos()
     jmodel = _jax_model(base)
@@ -156,7 +158,8 @@ def test_device_eval_matches_jax_per_video(base):
     assert got == pytest.approx(want, rel=1e-6, abs=1e-7)
 
 
-@pytest.mark.parametrize("base", ["nystromformer", "performer"])
+@pytest.mark.parametrize("base", ["nystromformer", "performer", "lstm",
+                                  "bilstm", "gcn"])
 def test_evaluate_cli_reads_jax_checkpoint(base, tmp_path, capsys):
     split = _write_dataset(tmp_path, _videos())
     variables = _jax_model(base).init(

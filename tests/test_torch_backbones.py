@@ -3,7 +3,8 @@ weight bridge) and numpy-seeded inputs, to 1e-5: each backbone module
 masked and unmasked, its ops (pseudo-inverse, depthwise conv and its
 gradients, the Fourier mix, the Haar DWT), padded == unpadded, DSNet
 forward and predict with each backbone, the full-width bridge round trip
-with ``constants``, and the init of each new leaf."""
+with ``constants`` and JAX's parameter counts, and the init of each new
+leaf."""
 import math
 
 import jax
@@ -19,9 +20,7 @@ from edsnet_tpu.models.nystromformer import moore_penrose_pinv as jax_pinv
 from edsnet_tpu.ops import depthwise_conv as jax_dconv
 from edsnet_tpu.ops.dwt import haar_dwt as jax_dwt
 from edsnet_tpu.ops.dwt import haar_idwt as jax_idwt
-from edsnet_torch.config import get_arguments
 from edsnet_torch.convert import flax_to_state_dict, state_dict_to_variables
-from edsnet_torch.evaluate import check_supported, check_train_supported
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import init_weights
 from edsnet_torch.models.fnet import fft_mix
@@ -33,12 +32,13 @@ from edsnet_torch.ops.dwt import haar_dwt, haar_idwt
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FEAT, HEADS = 32, 2
-# (base_model, orientation): every --base-model this slice serves besides
-# attention, fourier at each orientation
+# (base_model, orientation): every --base-model besides attention, fourier
+# at each orientation
 BACKBONES = [("nystromformer", "paper"), ("fourier", "temporal"),
              ("fourier", "feature_wise"), ("fourier", "paper"),
              ("performer", "paper"), ("linformer", "paper"),
-             ("dwt", "paper"), ("linear", "paper")]
+             ("dwt", "paper"), ("linear", "paper"), ("lstm", "paper"),
+             ("bilstm", "paper"), ("gcn", "paper")]
 IDS = [b if b != "fourier" else f"fourier-{o}" for b, o in BACKBONES]
 # B 3: a full row, a length that is odd and not a multiple of 64, and an
 # all-padding row
@@ -220,10 +220,12 @@ def test_dsnet_forward_and_predict_match_jax(base, orientation):
 
 
 # full-width parameter counts of the JAX init (CLI default scales), the
-# params collection only
+# params collection only; the port's trainable parameters (an LSTM's frozen
+# zero bias_ih_l0 is not one)
 FULL_PARAMS = {"nystromformer": 2_248_843, "fourier": 1_204_099,
                "performer": 4_353_411, "linformer": 14_351_875,
-               "dwt": 1_202_054, "linear": 1_200_003}
+               "dwt": 1_202_054, "linear": 1_200_003, "lstm": 8_543_107,
+               "bilstm": 6_445_955, "gcn": 1_200_003}
 
 
 @pytest.mark.parametrize("base", sorted(FULL_PARAMS))
@@ -237,7 +239,8 @@ def test_bridge_round_trip_full_width(base):
         encoder_type="classic", **kwargs), x, mask)
     model = get_model("anchor-based", **kwargs)
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
-    assert sum(p.numel() for p in model.parameters()) == FULL_PARAMS[base]
+    assert sum(p.numel() for p in model.parameters()
+               if p.requires_grad) == FULL_PARAMS[base]
     got = state_dict_to_variables(model.state_dict())
     assert sorted(got) == sorted(variables)
     for collection in variables:
@@ -297,14 +300,3 @@ def test_init_weights_new_leaves():
     unit = direct / direct.norm(dim=1, keepdim=True)
     np.testing.assert_allclose((unit[8:] @ unit[8:].T).numpy(), np.eye(2),
                                atol=1e-6)
-
-
-@pytest.mark.parametrize("base", ["lstm", "bilstm", "gcn"])
-def test_unported_backbones_raise(base):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("anchor-based", **_kwargs(base, "paper"))
-    args = get_arguments(["anchor-based", "--device", "cpu", "--base-model",
-                          base])
-    for check in (check_supported, check_train_supported):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check(args)

@@ -141,7 +141,7 @@ def test_evaluate_cli_reads_jax_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--context-parallel", "2"], ["--tensor-parallel", "2"],
     ["--num-devices", "2"], ["--host-eval"], ["--knapsack-audit"],
-    ["--base-model", "gcn"], ["--model-depth", "deep"],
+    ["--matmul-precision", "bfloat16"], ["--model-depth", "deep"],
     ["--pooling-type", "fft"]])
 def test_unserved_flags_raise(flags):
     args = port_evaluate.config_lib.get_arguments(
@@ -174,9 +174,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 33
+    assert len(imported) >= 35
     assert {f"edsnet_torch.{m}" for m in (
         "train", "trainer", "data.batching", "ops.losses", "parallel.steps",
         "utils.profiling", "kernels.flash_attention", "models.nystromformer",
         "ops.depthwise_conv", "models.fnet", "models.performer",
-        "models.linformer", "models.dwt_net", "ops.dwt")} <= imported
+        "models.linformer", "models.dwt_net", "ops.dwt", "models.lstm",
+        "models.gcn")} <= imported

@@ -150,7 +150,7 @@ def test_dsnet_padded_equals_unpadded(n_real):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue A"):
-        get_model("anchor-based", **{**SMALL, "base_model": "lstm"})
+        get_model("anchor-based", **{**SMALL, "pooling_type": "dwt"})
     with pytest.raises(NotImplementedError, match="Queue A"):
         get_model("anchor-based", **{**SMALL, "pooling_type": "fft"})
     with pytest.raises(NotImplementedError, match="Queue A"):

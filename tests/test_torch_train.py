@@ -148,9 +148,10 @@ def test_dropout_follows_its_generator():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compute-dtype", "bfloat16"], ["--remat"], ["--resume"],
-    ["--state-save-every", "5"], ["--profile"], ["--host-eval"],
-    ["--base-model", "lstm"], ["--tensor-parallel", "2"]])
+    ["--model-depth", "deep"], ["--pooling-type", "flat-pooling"],
+    ["--resume"], ["--state-save-every", "5"], ["--profile"],
+    ["--host-eval"], ["--model-depth", "original"],
+    ["--tensor-parallel", "2"]])
 def test_train_flags_not_served_raise(flags):
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
