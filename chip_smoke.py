@@ -8,7 +8,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    one nvcc per source, all started together; ptxas must report no spills
    for any kernel instance (registers and spills are printed);
 3. each kernel against its plain PyTorch twin on the card, at small shapes
-   (every head dim the kernels take) and at the main path's largest shape.
+   (every head dim the kernels take) and at the main path's largest shape;
+   the forward also at head dim 256, the deep anchor-free model's first
+   attention at F 1024 (small, and that path's (16, 2304, 256)).
    All three kernels run on the TF32 tensor cores at both precisions:
    "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a sum of up
    to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
@@ -28,9 +30,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    8 synthetic eccv16-shaped videos, through evaluate_on_device with batch
    size 4; the flash kernel must launch once per eval batch, every F must
    lie in [0, 1], and the dense route (--no-pallas) must give the same
-   per-video F and pred_cls within 1e-4; with --num-head 4 (head dim 256,
-   which the kernels do not take) the auto route predicts through the
-   dense path and --use-pallas raises a ValueError naming HEAD_DIMS;
+   per-video F and pred_cls within 1e-4; with --num-head 4 (head dim 256)
+   the auto route and --use-pallas each launch the forward kernel once per
+   predict, the auto route's pred_cls within 1e-4 of the dense route's;
 5. the differentiable attention path, the one that runs the backward
    kernels: flash_attention(..., precision="highest").backward(g) at B 4,
    H 8, N 2304, D 128 with per-video lengths against autograd of the dense
@@ -82,12 +84,29 @@ Phases, each of which must pass (exit code 1 otherwise):
    within 1e-6; both peak memories), trainer.train_records with both flags
    for one epoch (as in phase 6), and --matmul-precision tensorfloat32
    (both TF32 switches on during it and off after it; the headline's
-   pred_cls gap to float64 and predict ms); no kernel launched.
+   pred_cls gap to float64 and predict ms); no kernel launched;
+11. the anchor-free head at full width (the CLI's defaults: F 1024, 8
+   heads, hidden 128, fc depth 7, focal and soft-IoU; parameter counts
+   against JAX's): attention shallow evaluated on the 8 videos on the
+   kernel and the dense route (per-video F equal, pred_cls within 1e-4,
+   one forward launch per eval batch, no backward launch) and trained 2
+   epochs through trainer.train_records as in phase 6; nystromformer
+   shallow against float64 on every eval batch as in phase 8 and one step
+   per bucket under each of the four loss pairs (focal | cross-entropy x
+   soft-iou | smooth-l1), deep and original predicting, a bfloat16 step at the largest bucket (finite,
+   float32 masters and moments) and a --remat step whose updated
+   parameters equal the plain step's bit for bit, no kernel launched;
+   attention deep and original predicting over the eval batches (forward
+   launches per batch: two on deep, base_model1 at head dim 256 and
+   base_model2 at 128, one on original; pred_cls within 1e-4 of the dense
+   route) with one step per bucket; predict, NMS and step times.
 
-The last lines are a JSON object describing each kernel, the nvidia-smi
-line, and {"ok": true, "device": {...}}.  Without a CUDA card, or without
-the rest of the repository beside this file, it exits non-zero before
-printing a result.
+The last lines are a JSON object describing each kernel (``launches`` on
+the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
+evaluate paths, and for the forward its head-dim-256 readings), the
+nvidia-smi line, and {"ok": true, "device": {...}}.  Without a CUDA card,
+or without the rest of the repository beside this file, it exits non-zero
+before printing a result.
 """
 from __future__ import annotations
 
@@ -196,6 +215,12 @@ FLASH_CASES = [(4, 192, 64, [150, 150, 100, 100]),
                (2, 256, 128, [0, 256]),
                (32, 2304, 128, [2304] * 32),
                (4, 128, 32, [128, 100, 64, 0])]
+# head dim 256 takes the forward kernel only: the deep anchor-free model's
+# base_model1 at F 1024 (4 heads) on a bucket-2304 eval batch of 4 rows,
+# with row lengths up to the longest synthetic video's 2100
+DEEP_LENS = [2100] * 4 + [1902] * 4 + [1700] * 4 + [1500] * 4
+FWD_CASES = FLASH_CASES + [(4, 192, 256, [192, 150, 100, 0]),
+                           (16, 2304, 256, DEEP_LENS)]
 
 
 def emulated_errors(emulate, want) -> str:
@@ -222,13 +247,13 @@ def forward_errors(got, want) -> Dict[str, float]:
     return errs
 
 
-def check_flash(flash, phases: Phases) -> Dict[str, float]:
+def check_flash(flash, phases: Phases) -> Dict[str, Dict[int, float]]:
     """Forward kernel vs twin at both precisions: out, m and l (relative)
     within TOL at "highest"; out and m + log l within TOL_DEFAULT at
-    "default".  Returns the largest abs error of out over all cases, per
-    precision."""
-    worst = {p: 0.0 for p in TOLS}
-    for i, (bh, n, d, lens) in enumerate(FLASH_CASES):
+    "default".  Returns the largest abs error of out per precision and
+    head dim."""
+    worst = {p: {} for p in TOLS}
+    for i, (bh, n, d, lens) in enumerate(FWD_CASES):
         args = flash_case(flash, bh, n, d, lens, seed=i)
         want = flash.flash_attention_plain(*args)
         label = f"({bh}, {n}, {d}) lens {sorted(set(lens))}"
@@ -237,7 +262,8 @@ def check_flash(flash, phases: Phases) -> Dict[str, float]:
             got = flash.flash_attention_fwd(*args, precision=precision)
             torch.cuda.synchronize()
             errs = forward_errors(got, want)
-            worst[precision] = max(worst[precision], errs["out"])
+            worst[precision][d] = max(worst[precision].get(d, 0.0),
+                                      errs["out"])
             finite = all(bool(torch.isfinite(g).all()) for g in got)
             held = ("out", "m", "l rel") if precision == "highest" else (
                 "out", "m + log l")
@@ -303,29 +329,33 @@ def check_flash_backward(flash, phases: Phases
 
 def check_head_dim_routing(flash, get_model, args, tb, phases: Phases
                            ) -> None:
-    """--num-head 4 at F 1024 (head dim 256, which the kernels do not take):
-    the auto route predicts through the dense path on the card, and
-    --use-pallas raises a ValueError naming HEAD_DIMS."""
-    for use_pallas in (None, True):
+    """--num-head 4 at F 1024 (head dim 256): the auto route and
+    --use-pallas each launch the forward kernel once per predict on the
+    card, and the auto route's pred_cls is within TOL of the dense
+    route's (--no-pallas)."""
+    from edsnet_torch.models.common import init_weights
+
+    preds = {}
+    for use_pallas in (None, True, False):
         model = get_model(args.model, **{**vars(args), "num_head": 4,
                                          "use_pallas": use_pallas})
+        init_weights(model, torch.Generator().manual_seed(args.seed))
         model = model.cuda().eval()
         before = flash.flash_attention_fwd.launches
-        try:
-            with torch.inference_mode():
-                pred_cls, _ = model.predict(tb["seq"], tb["mask"])
-            outcome = (f"{flash.flash_attention_fwd.launches - before} "
-                       f"kernel launches, finite "
-                       f"{bool(torch.isfinite(pred_cls).all())}")
-        except ValueError as err:
-            outcome = f"ValueError: {err}"
-        print(f"    --num-head 4, use_pallas {use_pallas}: {outcome}")
-        want = ("0 kernel launches, finite True" if use_pallas is None
-                else "ValueError: --use-pallas: head dim 256 not in "
-                     "HEAD_DIMS")
-        phases.check(outcome.startswith(want),
+        with torch.inference_mode():
+            pred_cls, _ = model.predict(tb["seq"], tb["mask"])
+        launched = flash.flash_attention_fwd.launches - before
+        preds[use_pallas] = pred_cls
+        print(f"    --num-head 4, use_pallas {use_pallas}: {launched} kernel "
+              f"launches, finite {bool(torch.isfinite(pred_cls).all())}")
+        phases.check(launched == (use_pallas is not False)
+                     and bool(torch.isfinite(pred_cls).all()),
                      f"head dim 256 with use_pallas {use_pallas}: "
-                     f"{'dense path' if use_pallas is None else 'raises'}")
+                     f"{'dense path' if use_pallas is False else 'kernel'}")
+    real = tb["mask"].repeat_interleave(len(model.scales), dim=1)
+    err = float((preds[None] - preds[False]).abs()[real].max())
+    phases.check(err <= TOL, f"head dim 256: pred_cls kernel vs dense route "
+                             f"max abs err {err:.3e}")
 
 
 def eval_batch_breakdown(model, entry, nms_thresh: float
@@ -333,9 +363,10 @@ def eval_batch_breakdown(model, entry, nms_thresh: float
     """(ms of one ``_eval_batch_device``, ms of its NMS, boxes) on the eval
     batch ``entry``, in CUDA events."""
     from edsnet_torch.ops.bbox import nms_masked
-    from edsnet_torch.parallel.eval_device import _eval_batch_device
+    from edsnet_torch.parallel.eval_device import (_eval_batch_device,
+                                                   _num_scales_of)
 
-    tb, scales = entry["tb"], len(model.scales)
+    tb, scales = entry["tb"], _num_scales_of(model)
     batch_ms = cuda_ms(lambda: _eval_batch_device(
         model, tb, scales, nms_thresh, entry["frame_bucket"],
         entry["uniform_rate"]), iters=2, warmup=1)
@@ -413,10 +444,11 @@ def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
 
 def check_training(flash, phases: Phases, train_videos, val_videos,
                    args, expect_kernels: bool = True) -> Dict[str, int]:
-    """The training path at full width through trainer.train_records;
-    returns the launch counts of that run.  ``expect_kernels``: the
-    backbone is attention, whose validations launch the forward kernel
-    once per eval batch; otherwise no kernel may launch."""
+    """The training path at full width through trainer.train_records (the
+    step of ``args.model``); returns the launch counts of that run.
+    ``expect_kernels``: the backbone is attention, whose validations launch
+    the forward kernel once per eval batch; otherwise no kernel may
+    launch."""
     from edsnet_torch import trainer
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
@@ -424,7 +456,10 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
     from edsnet_torch.utils.checkpoint import load_checkpoint
 
     steps, evals = [], []
-    real_step, real_eval = trainer.ab_train_step, trainer.eval_fscore_device
+    step_name = ("ab_train_step" if args.model == "anchor-based"
+                 else "af_train_step")
+    real_step, real_eval = getattr(trainer, step_name), \
+        trainer.eval_fscore_device
 
     def counted_step(*a, **kw):     # the forward launches inside one step
         before = flash.flash_attention_fwd.launches
@@ -440,8 +475,8 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
                       len(prepared)))
         return val_f
 
-    trainer.ab_train_step, trainer.eval_fscore_device = (counted_step,
-                                                         counted_eval)
+    setattr(trainer, step_name, counted_step)
+    trainer.eval_fscore_device = counted_eval
     try:
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches(flash)
@@ -462,8 +497,8 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
                 fresh, val_videos, args.nms_thresh,
                 batch_size=args.batch_size, bucket_size=args.bucket_size)
     finally:
-        trainer.ab_train_step, trainer.eval_fscore_device = (real_step,
-                                                             real_eval)
+        setattr(trainer, step_name, real_step)
+        trainer.eval_fscore_device = real_eval
     losses = torch.stack([loss for loss, _ in steps]).cpu()
     print(f"  {len(steps)} steps in {args.max_epoch} epochs, "
           f"{train_ms:.1f} ms in all; losses "
@@ -599,12 +634,43 @@ def time_training(phases: Phases, train_videos, val_videos, args,
     phases.check(all(t > 0 for t in per_bucket.values()), "train steps timed")
 
 
+def time_kernel(flash, name, shape, n_ops, n_mats, n_rows, call, plain,
+                library, lib_name, smi: str) -> dict:
+    """One kernel at ``shape`` (BH, N, D) at each precision beside its
+    bound, its twin and the library call (CUDA events).  The bound: its
+    operations (``n_ops`` BH N^2 D) times the TF32 passes over the TF32
+    rate, or its bytes (``n_mats`` [N, D] and ``n_rows`` [N] f32 tensors
+    per BH, each read or written once) over the memory rate, the
+    larger."""
+    bh, n, d = shape
+    ops = n_ops * bh * n * n * d
+    io_ms = 4.0 * bh * (n_mats * n * d + n_rows * n) / HBM_BYTES_PER_S * 1e3
+    f32_ms = ops / F32_PEAK_FLOPS * 1e3
+    t = {"plain_ms": cuda_ms(plain, iters=5), "library_ms": cuda_ms(library),
+         "f32_bound_ms": max(f32_ms, io_ms)}
+    for precision in TOLS:
+        passes = flash.PASSES[precision]
+        ops_ms = passes * ops / TF32_PEAK_FLOPS * 1e3
+        r = t[precision] = {
+            "ms": cuda_ms(lambda: call(precision)),
+            "bound_ms": max(ops_ms, io_ms),
+            "bound_by": "operations" if ops_ms >= io_ms else "bytes"}
+        print(f"  [{smi}] {name} {shape} {precision}: kernel "
+              f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.2f} TFLOP/s), "
+              f"twin {t['plain_ms']:.4f} ms, {lib_name} "
+              f"{t['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(operations {ops_ms:.4f} ms at {passes} x {ops:.4g} on 495 "
+              f"TFLOP/s TF32, bytes {io_ms:.4f} ms at 3.35 TB/s; f32 bound "
+              f"{t['f32_bound_ms']:.4f} ms at 67 TFLOP/s)")
+    return t
+
+
 def time_kernels(flash, smi: str) -> Dict[str, dict]:
     """Each kernel at (BH, N, D) = (32, 2304, 128), the main path's largest
-    shape, at each precision it takes, beside its bound, its twin and the
-    library call that computes the same function (CUDA events)."""
+    shape, and the forward also at (16, 2304, 256), the deep anchor-free
+    path's base_model1, each at both precisions beside its bound, its twin
+    and the library call that computes the same function (CUDA events)."""
     q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
-    bh, n, d = q.shape
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
                     ).cuda()
     out, m, l = flash.flash_attention_fwd(q, k, v, mask)
@@ -614,55 +680,36 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
     lq, lk, lv = (t[None].clone().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=attn_mask)
-    # per kernel: operations per BH*N^2*D, [N, D] and [N] tensors read once
-    # or written once, the call at a precision, its twin and the library
-    # call
+    q2, k2, v2, mask2 = flash_case(flash, 16, 2304, 256, DEEP_LENS, seed=8)
+    mask2_lib = (mask2 > 0)[None, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # per kernel: its shape, operations per BH*N^2*D, [N, D] and [N]
+    # tensors read or written once, the call at a precision, its twin and
+    # the library call
     rows = (
-        ("flash_attention_fwd", 4, 4, 3,
+        ("flash_attention_fwd", tuple(q.shape), 4, 4, 3,
          lambda p: flash.flash_attention_fwd(q, k, v, mask, precision=p),
          lambda: flash.flash_attention_plain(q, k, v, mask),
-         lambda: torch.nn.functional.scaled_dot_product_attention(
-             q[None], k[None], v[None], attn_mask=attn_mask),
+         lambda: sdpa(q[None], k[None], v[None], attn_mask=attn_mask),
          "scaled_dot_product_attention"),
-        ("flash_attention_dq", 6, 5, 4,
+        ("flash_attention_dq", tuple(q.shape), 6, 5, 4,
          lambda p: flash.flash_attention_dq(*bwd_args, precision=p),
          lambda: flash.flash_attention_dq_plain(*bwd_args),
          lambda: torch.autograd.grad(lib_out, (lq,), g[None],
                                      retain_graph=True),
          "autograd.grad of q through scaled_dot_product_attention"),
-        ("flash_attention_dkv", 8, 6, 4,
+        ("flash_attention_dkv", tuple(q.shape), 8, 6, 4,
          lambda p: flash.flash_attention_dkv(*bwd_args, precision=p),
          lambda: flash.flash_attention_dkv_plain(*bwd_args),
          lambda: torch.autograd.grad(lib_out, (lk, lv), g[None],
                                      retain_graph=True),
-         "autograd.grad of k, v through scaled_dot_product_attention"))
-    timing = {}
-    for name, n_ops, n_mats, n_rows, call, plain, library, lib_name in rows:
-        ops = n_ops * bh * n * n * d
-        io_ms = 4.0 * bh * (n_mats * n * d + n_rows * n) \
-            / HBM_BYTES_PER_S * 1e3
-        f32_ms = ops / F32_PEAK_FLOPS * 1e3
-        t = timing[name] = {
-            "plain_ms": cuda_ms(plain, iters=5),
-            "library_ms": cuda_ms(library),
-            "f32_bound_ms": max(f32_ms, io_ms)}
-        for precision in TOLS:
-            passes = flash.PASSES[precision]
-            ops_ms = passes * ops / TF32_PEAK_FLOPS * 1e3
-            t[precision] = {
-                "ms": cuda_ms(lambda: call(precision)),
-                "bound_ms": max(ops_ms, io_ms),
-                "bound_by": "operations" if ops_ms >= io_ms else "bytes"}
-            r = t[precision]
-            print(f"  [{smi}] {name} (32, 2304, 128) {precision}: kernel "
-                  f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.2f} TFLOP/s), "
-                  f"twin {t['plain_ms']:.4f} ms, {lib_name} "
-                  f"{t['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"(operations {ops_ms:.4f} ms at {passes} x "
-                  f"{ops:.4g} on 495 TFLOP/s TF32, bytes {io_ms:.4f} ms at "
-                  f"3.35 TB/s; f32 bound {t['f32_bound_ms']:.4f} ms at 67 "
-                  f"TFLOP/s)")
-    return timing
+         "autograd.grad of k, v through scaled_dot_product_attention"),
+        ("flash_attention_fwd head dim 256", tuple(q2.shape), 4, 4, 3,
+         lambda p: flash.flash_attention_fwd(q2, k2, v2, mask2, precision=p),
+         lambda: flash.flash_attention_plain(q2, k2, v2, mask2),
+         lambda: sdpa(q2[None], k2[None], v2[None], attn_mask=mask2_lib),
+         "scaled_dot_product_attention"))
+    return {row[0]: time_kernel(flash, *row, smi=smi) for row in rows}
 
 
 HEADLINE_PARAMS = 2_248_843   # nystromformer, scale 12, F 1024, 8 heads
@@ -690,6 +737,7 @@ def f64_errors(model, args, prepared, keep_from_card: bool = False):
     entries that float64's own selection would change."""
     from edsnet_torch.models import gcn
     from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.parallel.eval_device import _num_scales_of
 
     ref = get_model(args.model, **vars(args))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -721,7 +769,8 @@ def f64_errors(model, args, prepared, keep_from_card: bool = False):
         finally:
             gcn.top_similarity_keep = real_keep
         changed.append(sum(flips))
-        real = tb["mask"].cpu().repeat_interleave(len(model.scales), dim=1)
+        real = tb["mask"].cpu().repeat_interleave(_num_scales_of(model),
+                                                  dim=1)
         got_cls, got_boxes = got_cls.cpu().double(), got_boxes.cpu().double()
         finite &= bool(torch.isfinite(got_cls[real]).all()
                        and torch.isfinite(got_boxes[real]).all())
@@ -1074,6 +1123,288 @@ def check_step_flags(flash, phases: Phases, records, train_videos,
                  f"{counts}")
 
 
+# JAX's init on the CPU at F 1024, 8 heads, hidden 128, fc depth 7
+AF_PARAMS = {("attention", "shallow"): 4_344_836,
+             ("attention", "deep"): 8_539_140,
+             ("attention", "original"): 4_328_324,
+             ("nystromformer", "shallow"): 2_248_972,
+             ("nystromformer", "deep"): 3_298_704,
+             ("nystromformer", "original"): 2_232_460}
+AF_LOSSES = (("focal", "soft-iou"), ("focal", "smooth-l1"),
+             ("cross-entropy", "soft-iou"), ("cross-entropy", "smooth-l1"))
+
+
+def check_anchor_free(flash, phases: Phases, records, train_videos,
+                      val_videos, seed: int, smi: str
+                      ) -> Dict[str, Dict[str, int]]:
+    """The anchor-free head at full width (the CLI's defaults: F 1024, 8
+    heads, hidden 128, fc depth 7, focal and soft-IoU losses), seeded
+    random weights: attention shallow evaluated on the kernel and dense
+    routes (per-video F equal, pred_cls within TOL, one forward launch per
+    eval batch) and trained 2 epochs through trainer.train_records;
+    nystromformer shallow against float64 on every eval batch and one
+    step per bucket under each loss pair, deep and original predicting,
+    no launch; attention deep and
+    original predicting over the eval batches (forward launches per batch:
+    two on deep, whose base_model1 runs at head dim 256, one on original;
+    pred_cls within TOL of the dense route) with one step per bucket; on
+    nystromformer at the largest bucket a bf16 step (finite, float32
+    masters and moments) and a remat step bit-equal to the plain one;
+    times.  Returns the launch counts of each kernel on each anchor-free
+    attention evaluate path (shallow through evaluate_on_device, deep and
+    original through predict over the eval batches)."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch.models.common import set_dropout_generator
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import (evaluate_on_device,
+                                                   prepare_eval_batches)
+
+    device = torch.device("cuda")
+
+    def af_args(base, depth="shallow", *extra):
+        return config_lib.get_arguments(
+            ["anchor-free", "--base-model", base, "--model-depth", depth,
+             "--seed", str(seed), *extra])
+
+    def built(args):
+        model = seeded_model(args, device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        want = AF_PARAMS[(args.base_model, args.model_depth)]
+        phases.check(n_params == want,
+                     f"anchor-free {args.base_model} {args.model_depth}: "
+                     f"{n_params} parameters (JAX's {want})")
+        return model
+
+    def dense_twin(args, model):
+        dense = get_model(args.model, **{**vars(args), "use_pallas": False})
+        dense = dense.to(device).eval()          # --no-pallas
+        dense.load_state_dict(model.state_dict())
+        return dense
+
+    def predict_all(model):
+        with torch.inference_mode():
+            return [model.predict(e["tb"]["seq"], e["tb"]["mask"])
+                    for e in prepared]
+
+    def cls_gap(got, want):
+        return max(float((g[0] - w[0]).abs()[e["tb"]["mask"]].max())
+                   for g, w, e in zip(got, want, prepared))
+
+    def step_fn(args, model, **flags):
+        set_dropout_generator(model, torch.Generator(device).manual_seed(
+            seed + 1))
+        opt = steps.make_optimizer(model.parameters(), args.lr,
+                                   args.weight_decay)
+        kw = dict(lambda_reg=args.lambda_reg, lambda_ctr=args.lambda_ctr,
+                  cls_kind=args.cls_loss, reg_kind=args.reg_loss, **flags)
+        return opt, lambda b: steps.af_train_step(model, opt, b, **kw)
+
+    def steps_per_bucket(label, args, model, batches, **flags):
+        """One step per bucket: losses finite, trainable parameters moved;
+        returns the step function."""
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt, step = step_fn(args, model, **flags)
+        metrics = [step(b) for b in batches]
+        losses = torch.stack([torch.stack([m[k] for k in sorted(m)])
+                              for m in metrics]).cpu()
+        moved = sum(not torch.equal(init[n], p)
+                    for n, p in model.named_parameters())
+        print(f"    {label}: one step per bucket "
+              f"{[int(b['seq'].shape[1]) for b in batches]}, "
+              f"{sorted(metrics[0])} "
+              f"{[[round(float(v), 4) for v in row] for row in losses]}")
+        phases.check(bool(torch.isfinite(losses).all()),
+                     f"{label}: every step's losses finite")
+        phases.check(moved == len(init),
+                     f"{label}: parameters changed ({moved}/{len(init)})")
+        return step
+
+    # attention, shallow: the CLI default, the forward kernel in evaluation
+    args = af_args("attention")
+    prepared = prepare_eval_batches(records, 4, args.bucket_size, device)
+    batches = train_batches(args, train_videos, device)  # labels: any base
+    big = batches[-1]
+    bucket = int(big["seq"].shape[1])
+    model = built(args)
+    evaluate_on_device(model, records[:1], args.nms_thresh, batch_size=4,
+                       bucket_size=args.bucket_size)
+    torch.cuda.synchronize()
+    reset_launches(flash)
+    per_video = []
+    t0 = time.perf_counter()
+    mean_f, mean_div = evaluate_on_device(
+        model, records, args.nms_thresh, batch_size=4,
+        bucket_size=args.bucket_size, per_video=per_video)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts(flash)
+    launched = {"shallow": counts}
+    print(f"  attention shallow: mean F {mean_f:.6f}, mean diversity "
+          f"{mean_div:.6f}; F per video "
+          f"{[round(p['fscore'], 6) for p in per_video]}")
+    phases.check(counts == {"flash_attention_fwd": len(prepared),
+                            "flash_attention_dq": 0,
+                            "flash_attention_dkv": 0},
+                 f"anchor-free attention evaluate: launches {counts}, one "
+                 f"forward per eval batch ({len(prepared)})")
+    phases.check(len(per_video) == len(records)
+                 and all(0.0 <= p["fscore"] <= 1.0 for p in per_video),
+                 "anchor-free attention: every F in [0, 1]")
+    dense = dense_twin(args, model)
+    dense_videos = []
+    evaluate_on_device(dense, records, args.nms_thresh, prepared=prepared,
+                       per_video=dense_videos)
+    same_f = [a["fscore"] == b["fscore"] for a, b in zip(per_video,
+                                                         dense_videos)]
+    phases.check(all(same_f), f"anchor-free attention: per-video F equal "
+                              f"on kernel and dense routes "
+                              f"({sum(same_f)}/{len(same_f)})")
+    err = cls_gap(predict_all(model), predict_all(dense))
+    phases.check(err <= TOL, f"anchor-free attention: pred_cls kernel vs "
+                             f"dense route max abs err {err:.3e}")
+    with torch.inference_mode():
+        predict_ms = [cuda_ms(lambda: model.predict(e["tb"]["seq"],
+                                                    e["tb"]["mask"]),
+                              iters=5) for e in prepared]
+    batch_ms, nms_ms, n_boxes = eval_batch_breakdown(model, prepared[-1],
+                                                     args.nms_thresh)
+    print("  attention shallow: trainer.train_records, 2 epochs:")
+    check_training(flash, phases, train_videos, val_videos,
+                   af_args("attention", "shallow", "--batch-size", "4",
+                           "--max-epoch", "2"))
+    _, att_step = step_fn(args, seeded_model(args, device))
+    att_step_ms = {int(b["seq"].shape[1]): cuda_ms(lambda: att_step(b),
+                                                   iters=5, warmup=2)
+                   for b in batches}
+
+    # nystromformer, shallow: no kernel; float64, the four loss pairs
+    ny_args = af_args("nystromformer")
+    reset_launches(flash)
+    ny = built(ny_args)
+    check_against_f64(ny, ny_args, prepared, phases,
+                      "anchor-free nystromformer")
+    with torch.inference_mode():
+        ny_predict_ms = [cuda_ms(lambda: ny.predict(e["tb"]["seq"],
+                                                    e["tb"]["mask"]),
+                                 iters=5) for e in prepared]
+    ny_batch_ms, ny_nms_ms, ny_boxes = eval_batch_breakdown(
+        ny, prepared[-1], ny_args.nms_thresh)
+    step = None
+    for cls_kind, reg_kind in AF_LOSSES:
+        pair_args = af_args("nystromformer", "shallow", "--cls-loss",
+                            cls_kind, "--reg-loss", reg_kind)
+        pair_step = steps_per_bucket(
+            f"nystromformer {cls_kind} + {reg_kind}", pair_args,
+            seeded_model(pair_args, device), batches)
+        step = step or pair_step        # the CLI's pair, timed below
+    ny_step_ms = {int(b["seq"].shape[1]): cuda_ms(lambda: step(b), iters=5,
+                                                  warmup=2)
+                  for b in batches}
+    ny_wall_ms, ny_busy_ms = device_busy_ms(lambda: [step(b)
+                                                     for b in batches])
+
+    def flagged(**flags):
+        model = seeded_model(ny_args, device)
+        return (model,) + step_fn(ny_args, model, **flags)
+
+    for depth in ("deep", "original"):
+        got = predict_all(built(af_args("nystromformer", depth)))
+        phases.check(all(bool(((c >= 0) & (c <= 1)).all()) for c, _ in got),
+                     f"anchor-free nystromformer {depth}: pred_cls in "
+                     f"[0, 1] over the eval batches")
+    bf16, bf16_opt, bf16_step = flagged(compute_dtype="bfloat16")
+    bf16_losses = torch.stack(list(bf16_step(big).values())).cpu()
+    moments = [t for st in bf16_opt.state.values() for k, t in st.items()
+               if k.startswith("exp_avg")]
+    phases.check(bool(torch.isfinite(bf16_losses).all()),
+                 f"anchor-free nystromformer bfloat16 step at bucket "
+                 f"{bucket}: losses "
+                 f"{[round(float(v), 4) for v in bf16_losses]} finite")
+    phases.check(all(p.dtype == torch.float32 for p in bf16.parameters())
+                 and len(moments) == 2 * len(list(bf16.parameters()))
+                 and all(t.dtype == torch.float32 for t in moments),
+                 "anchor-free nystromformer bfloat16: master parameters "
+                 "and Adam moments float32")
+    plain, _, plain_step = flagged()
+    remat, _, remat_step = flagged(remat=True)
+    plain_step(big)
+    remat_step(big)
+    same = all(torch.equal(a, b) for a, b in zip(plain.parameters(),
+                                                 remat.parameters()))
+    gap = max(float((a - b).detach().abs().max())
+              for a, b in zip(plain.parameters(), remat.parameters()))
+    phases.check(same, f"anchor-free nystromformer --remat: updated "
+                       f"parameters bit-equal to the plain step's (max gap "
+                       f"{gap:.3e})")
+    flag_ms = {name: cuda_ms(lambda: fn(big), iters=5, warmup=1)
+               for name, fn in (("float32", plain_step),
+                                ("bfloat16", bf16_step),
+                                ("--remat", remat_step))}
+    counts = launch_counts(flash)
+    phases.check(not any(counts.values()),
+                 f"no kernel launched on the anchor-free nystromformer path "
+                 f"{counts}")
+
+    # attention, deep and original: per eval batch, deep launches the
+    # forward for base_model1 (4 heads, head dim 256) and base_model2 (8
+    # heads, 128), original for its one backbone
+    depth_ms = {}
+    for depth, per_batch in (("deep", 2), ("original", 1)):
+        d_args = af_args("attention", depth)
+        d_model = built(d_args)
+        reset_launches(flash)
+        got = predict_all(d_model)
+        counts = launch_counts(flash)
+        launched[depth] = counts
+        err = cls_gap(got, predict_all(dense_twin(d_args, d_model)))
+        finite = all(bool(torch.isfinite(c[e["tb"]["mask"]]).all()
+                          and ((c >= 0) & (c <= 1)).all())
+                     for (c, _), e in zip(got, prepared))
+        phases.check(counts == {"flash_attention_fwd":
+                                per_batch * len(prepared),
+                                "flash_attention_dq": 0,
+                                "flash_attention_dkv": 0},
+                     f"anchor-free attention {depth} predict: launches "
+                     f"{counts}, {per_batch} forward per eval batch")
+        phases.check(finite and err <= TOL,
+                     f"anchor-free attention {depth}: pred_cls in [0, 1], "
+                     f"within {TOL:g} of the dense route ({err:.3e})")
+        with torch.inference_mode():
+            p_ms = cuda_ms(lambda: d_model.predict(
+                prepared[-1]["tb"]["seq"], prepared[-1]["tb"]["mask"]),
+                iters=5)
+        d_step = steps_per_bucket(f"attention {depth}", d_args, d_model,
+                                  batches)
+        depth_ms[depth] = (p_ms, cuda_ms(lambda: d_step(big), iters=5,
+                                         warmup=1))
+
+    buckets = [int(e["tb"]["seq"].shape[1]) for e in prepared]
+    print(f"  [{smi}] anchor-free attention shallow: predict ms per batch "
+          f"{[round(t, 3) for t in predict_ms]} (bucket lengths {buckets}); "
+          f"eval of {len(records)} videos {eval_ms:.1f} ms; train step ms "
+          f"per bucket { {k: round(v, 3) for k, v in att_step_ms.items()} }")
+    print_breakdown(smi, "anchor-free attention", prepared[-1], batch_ms,
+                    predict_ms[-1], nms_ms, n_boxes)
+    print(f"  [{smi}] anchor-free nystromformer: predict ms per batch "
+          f"{[round(t, 3) for t in ny_predict_ms]}; train step ms per "
+          f"bucket { {k: round(v, 3) for k, v in ny_step_ms.items()} }; at "
+          f"bucket {bucket}: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in flag_ms.items()))
+    busy = (f"{ny_busy_ms:.3f} ms of CUDA kernels in {ny_wall_ms:.3f} ms, "
+            f"busy {100 * ny_busy_ms / ny_wall_ms:.1f} %" if ny_busy_ms > 0
+            else "device time not measured (the profiler saw no kernels)")
+    print(f"  [{smi}] anchor-free nystromformer: one epoch of "
+          f"{len(batches)} steps under torch.profiler: {busy}")
+    print_breakdown(smi, "anchor-free nystromformer", prepared[-1],
+                    ny_batch_ms, ny_predict_ms[-1], ny_nms_ms, ny_boxes)
+    for depth, (p_ms, s_ms) in depth_ms.items():
+        print(f"  [{smi}] anchor-free attention {depth}: predict at bucket "
+              f"{buckets[-1]} {p_ms:.3f} ms; train step at bucket {bucket} "
+              f"{s_ms:.3f} ms")
+    return launched
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -1261,13 +1592,17 @@ def main() -> int:
     print("phase: the train-step flags at full width")
     check_step_flags(flash, phases, records, train_videos, val_videos,
                      opts.seed, smi)
+    print("phase: anchor-free at full width")
+    af_launches = check_anchor_free(flash, phases, records, train_videos,
+                                    val_videos, opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
     kernels = []
     for name, source, line, used, err, err_default in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 58, launches,
-             fwd_err["highest"], fwd_err["default"]),
+             max(fwd_err["highest"].values()),
+             max(fwd_err["default"].values())),
             ("flash_attention_dq", "flash_attention_bwd.cu", 155,
              bwd_launches["flash_attention_dq"], dq_err["highest"],
              dq_err["default"]),
@@ -1284,8 +1619,22 @@ def main() -> int:
             "bound_ms": t["highest"]["bound_ms"],
             "bound_by": t["highest"]["bound_by"],
             "library_ms": t["library_ms"],
+            "launches_anchor_free": {
+                path: counts[name] for path, counts in af_launches.items()},
             "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
                         "bound_ms": t["default"]["bound_ms"]}}
+        if name == "flash_attention_fwd":   # deep anchor-free's base_model1
+            t = timing["flash_attention_fwd head dim 256"]
+            entry["head_dim_256"] = {
+                "shape": [16, 2304, 256],
+                "max_abs_err": fwd_err["highest"][256],
+                "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["highest"]["bound_ms"],
+                "bound_by": t["highest"]["bound_by"],
+                "library_ms": t["library_ms"],
+                "default": {"ms": t["default"]["ms"],
+                            "max_abs_err": fwd_err["default"][256],
+                            "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -32,6 +32,12 @@
 //     of a warp touches 32 distinct banks;
 //   - shared memory at D = 128: q 33.8 KB plus two stages of k and v
 //     (67.6 KB), about 102 KB, so two blocks (8 warps) run on each SM.
+// Head dim 256 (the deep anchor-free model's first attention at F 1024,
+// 4 heads) is the same kernel: O takes 128 accumulator registers a thread,
+// which still fits the 255 a thread may hold, and the tiles take 195 KB of
+// the 227 KB a block may have, so one block (4 warps) runs on each SM.
+// Bound at (BH, N, D) = (16, 2304, 256): 0.527 ms at 3 passes, 0.176 ms at
+// 1, the same operations as (32, 2304, 128).
 // Why mma.sync and not wgmma: wgmma's TF32 form reads both operands K-major
 // from shared memory, and P V is not K-major in V; a transposed copy of V,
 // and at 3 passes a residual copy of every operand, would not fit beside
@@ -225,6 +231,9 @@ cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
     case 128:
       return launch<128, PASSES>(q, k, v, mask, out, m, l, bh, n, scale,
                                  stream);
+    case 256:
+      return launch<256, PASSES>(q, k, v, mask, out, m, l, bh, n, scale,
+                                 stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -234,7 +243,7 @@ cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
 
 // q, k, v, out: [bh, n, d] f32 contiguous, 16-byte aligned; mask: [bh, n]
 // int32; m, l: [bh, n] f32.  n must be a multiple of 64, d one of 32, 64,
-// 128 and passes 1 or 3.  Launches on `stream` and returns the launch's
+// 128, 256 and passes 1 or 3.  Launches on `stream` and returns the launch's
 // cudaError_t (0 = success).
 extern "C" int edsnet_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* mask,

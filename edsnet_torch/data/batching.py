@@ -1,10 +1,11 @@
-"""Training-label preparation and length-bucketed padded batching
-(anchor-based).
+"""Training-label preparation and length-bucketed padded batching.
 
 Counterpart of edsnet_tpu/data/batching.py.  The deterministic labels of a
-video (keyshot target, positive anchors and their offsets, the negative and
-incomplete candidates) are computed once, on the host, in numpy; only the
-random negative and incomplete sampling runs per step, on the device
+video are computed once, on the host, in numpy: the keyshot target, and
+for the anchor-based head the positive anchors and their offsets and the
+negative and incomplete candidates, for the anchor-free head the distances
+to the segment's ends and their centerness.  Only the anchor-based random
+negative and incomplete sampling runs per step, on the device
 (parallel/steps.py).  Batches are videos of one length bucket (a multiple
 of ``bucket_size``) padded to a common length, with masks.
 """
@@ -16,6 +17,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from edsnet_torch.data.dataset import VideoRecord
+from edsnet_torch.ops import anchor_free as af_ops
 from edsnet_torch.ops import anchors as anchor_ops
 from edsnet_torch.ops import bbox as bbox_ops
 from edsnet_torch.ops import summary as summ_ops
@@ -27,15 +29,19 @@ def _round8(x: int) -> int:
 
 @dataclass
 class TrainItem:
-    """One video with its precomputed anchor-based labels."""
+    """One video with its precomputed labels, anchor-based or anchor-free."""
     key: str
     seq: np.ndarray                 # [N, F]
     target: np.ndarray              # [N] keyshot summary at the picks (0/1)
-    cls_pos: np.ndarray             # [N, S] int32
-    loc_label: np.ndarray           # [N, S, 2] float32
-    neg_eligible: np.ndarray        # [N, S] bool
-    inc_eligible: np.ndarray        # [N, S] bool
+    # anchor-based labels
+    cls_pos: Optional[np.ndarray] = None        # [N, S] int32
+    loc_label: Optional[np.ndarray] = None      # [N, S, 2] float32
+    neg_eligible: Optional[np.ndarray] = None   # [N, S] bool
+    inc_eligible: Optional[np.ndarray] = None   # [N, S] bool
     num_pos: int = 0
+    # anchor-free labels
+    af_loc: Optional[np.ndarray] = None         # [N, 2] float32
+    af_ctr: Optional[np.ndarray] = None         # [N] float32
 
 
 def make_target(record: VideoRecord) -> Optional[np.ndarray]:
@@ -100,8 +106,13 @@ def prepare_ab_item(record: VideoRecord, anchor_scales: Sequence[int],
 
 
 def prepare_af_item(record: VideoRecord) -> Optional[TrainItem]:
-    raise NotImplementedError("anchor-free labels are not ported yet "
-                              "(ROADMAP.md Queue A item 9)")
+    """Anchor-free labels for one video, or None to skip it."""
+    target = make_target(record)
+    if target is None:
+        return None
+    loc = af_ops.get_loc_label_np(target)
+    return TrainItem(key=record.key, seq=record.seq, target=target,
+                     af_loc=loc, af_ctr=af_ops.get_ctr_label_np(target, loc))
 
 
 def prepare_items(records: Sequence[VideoRecord], kind: str,
@@ -138,10 +149,11 @@ def batch_items(items: List[TrainItem], batch_size: int, bucket_size: int,
                 pad_batch_to: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     """Yield padded, masked batches grouped by length bucket.
 
-    Each batch has seq [B,L,F], mask [B,L], video_valid [B], target,
-    cls_pos, loc_label, neg_eligible, inc_eligible, num_pos and keys.  B is
-    padded up to a multiple of ``pad_batch_to`` with rows whose video_valid
-    is False.
+    Each batch has seq [B,L,F], mask [B,L], video_valid [B], target and
+    keys, plus the labels the items carry: cls_pos, loc_label,
+    neg_eligible, inc_eligible and num_pos (anchor-based), af_loc and
+    af_ctr (anchor-free).  B is padded up to a multiple of
+    ``pad_batch_to`` with rows whose video_valid is False.
     """
     order = np.arange(len(items))
     if shuffle:
@@ -173,7 +185,7 @@ def _stack_chunk(chunk: List[TrainItem], blen: int,
         arrs += [np.zeros_like(arrs[0])] * (b_pad - b)
         return np.stack(arrs).astype(dtype)
 
-    return {
+    batch = {
         "seq": stack(lambda it: it.seq, np.float32),
         "mask": np.stack(
             [np.arange(blen) < it.seq.shape[0] for it in chunk]
@@ -181,13 +193,18 @@ def _stack_chunk(chunk: List[TrainItem], blen: int,
         "video_valid": np.asarray([True] * b + [False] * (b_pad - b)),
         "target": stack(lambda it: it.target, np.int32),
         "keys": [it.key for it in chunk],
-        "cls_pos": stack(lambda it: it.cls_pos, np.int32),
-        "loc_label": stack(lambda it: it.loc_label, np.float32),
-        "neg_eligible": stack(lambda it: it.neg_eligible, bool),
-        "inc_eligible": stack(lambda it: it.inc_eligible, bool),
-        "num_pos": np.asarray([it.num_pos for it in chunk]
-                              + [0] * (b_pad - b), np.int32),
     }
+    if chunk[0].cls_pos is not None:
+        batch["cls_pos"] = stack(lambda it: it.cls_pos, np.int32)
+        batch["loc_label"] = stack(lambda it: it.loc_label, np.float32)
+        batch["neg_eligible"] = stack(lambda it: it.neg_eligible, bool)
+        batch["inc_eligible"] = stack(lambda it: it.inc_eligible, bool)
+        batch["num_pos"] = np.asarray([it.num_pos for it in chunk]
+                                      + [0] * (b_pad - b), np.int32)
+    if chunk[0].af_loc is not None:
+        batch["af_loc"] = stack(lambda it: it.af_loc, np.float32)
+        batch["af_ctr"] = stack(lambda it: it.af_ctr, np.float32)
+    return batch
 
 
 def pool_items(items: List[TrainItem], bucket_size: int

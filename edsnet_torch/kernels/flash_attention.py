@@ -45,7 +45,8 @@ import torch
 
 NEG = -1e30
 BLOCK = 64
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)     # the forward kernel's head dims
+BWD_HEAD_DIMS = (32, 64, 128)      # the backward kernels' (dq, dk/dv)
 PRECISIONS = ("default", "highest")
 PASSES = {"default": 1, "highest": 3}   # TF32 products per matrix product
 
@@ -201,12 +202,12 @@ def flash_attention_bwd_plain(q, k, v, mask, o, m, l, g
 
 
 def _check(name: str, q: torch.Tensor, mask: torch.Tensor,
-           like_q: dict, rows: dict) -> None:
+           like_q: dict, rows: dict, head_dims=HEAD_DIMS) -> None:
     """Raise unless the tensors are what the CUDA kernels take (their
     16-byte asynchronous copies need 16-byte aligned rows)."""
     bh, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} not in {head_dims}")
     if n % BLOCK:
         raise ValueError(f"{name}: N={n} is not a multiple of {BLOCK}")
     for shape, tensors in (((bh, n, d), like_q), ((bh, n, 1), rows)):
@@ -277,7 +278,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, *, precision: str = "highest"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper: [BH, N, D] f32 q/k/v with N a multiple of 64 and D in
-    (32, 64, 128), [BH, N] int32 mask -> (out, m [BH, N, 1], l [BH, N, 1]),
+    ``HEAD_DIMS``, [BH, N] int32 mask -> (out, m [BH, N, 1], l [BH, N, 1]),
     at 3 TF32 passes (``precision="highest"``) or 1 (``"default"``)."""
     name = "flash_attention_fwd"
     passes = _passes(name, precision)
@@ -300,16 +301,17 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_dq(q, k, v, mask, g, m, l, dd, *,
                        precision: str = "highest") -> torch.Tensor:
-    """dq kernel wrapper: q/k/v/g [BH, N, D] f32, mask [BH, N] int32, the
-    forward's m, l and dd = rowsum(g * out), each [BH, N, 1] f32 -> dq, at
-    3 TF32 passes (``precision="highest"``) or 1 (``"default"``)."""
+    """dq kernel wrapper: q/k/v/g [BH, N, D] f32 with D in ``BWD_HEAD_DIMS``,
+    mask [BH, N] int32, the forward's m, l and dd = rowsum(g * out), each
+    [BH, N, 1] f32 -> dq, at 3 TF32 passes (``precision="highest"``) or 1
+    (``"default"``)."""
     name = "flash_attention_dq"
     passes = _passes(name, precision)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, mask, g, m, l, dd)
     _cuda_only(name, q)
     _check(name, q, mask, {"q": q, "k": k, "v": v, "g": g},
-           {"m": m, "l": l, "dd": dd})
+           {"m": m, "l": l, "dd": dd}, BWD_HEAD_DIMS)
     dq = torch.empty_like(q)
     _launch(name, "edsnet_flash_attention_dq",
             (q, k, v, mask, g, m, l, dd, dq), passes)
@@ -332,7 +334,7 @@ def flash_attention_dkv(q, k, v, mask, g, m, l, dd, *,
         return flash_attention_dkv_plain(q, k, v, mask, g, m, l, dd)
     _cuda_only(name, q)
     _check(name, q, mask, {"q": q, "k": k, "v": v, "g": g},
-           {"m": m, "l": l, "dd": dd})
+           {"m": m, "l": l, "dd": dd}, BWD_HEAD_DIMS)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     _launch(name, "edsnet_flash_attention_dkv",

@@ -14,16 +14,20 @@ itself.
 JAX's length threshold does):
 - training passes always take the dense path;
 - None (auto): the flash kernel at precision "highest" on a CUDA device
-  when the head dim D is one the kernels take (``HEAD_DIMS``) and
-  N >= ``FLASH_MIN_LEN``; otherwise the dense path.  On the CPU the dense
-  path runs, as JAX's auto rule keeps the kernel off away from its
-  accelerator, and e.g. ``--num-head 4`` at F 1024 (D = 256) runs dense on
-  the card;
+  when the head dim D is one the forward kernel takes (``HEAD_DIMS``:
+  32, 64, 128 and 256, the last for the deep anchor-free model's
+  ``base_model1`` at F 1024) and N >= ``FLASH_MIN_LEN``; otherwise the
+  dense path.  On the CPU the dense path runs, as JAX's auto rule keeps the
+  kernel off away from its accelerator, and e.g. ``--num-feature 32
+  --num-head 2`` (D = 16) runs dense on the card;
 - True (--use-pallas): the flash route on any device at N >=
   ``FLASH_MIN_LEN``, precision "default" (on the CPU that is the kernel's
   plain twin, which takes any D); on a CUDA device a head dim outside
   ``HEAD_DIMS`` raises, since the user asked for the kernel;
 - False (--no-pallas): always the dense path.
+The backward kernels take D up to 128 (``BWD_HEAD_DIMS``): the flash route
+is differentiated only by callers of ``flash_attention``, never by a
+training pass here, and at D = 256 its backward raises.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def flash_route(on_cuda: bool, training: bool, n: int, head_dim: int,
     if on_cuda and head_dim not in HEAD_DIMS:
         raise ValueError(f"--use-pallas: head dim {head_dim} not in "
                          f"HEAD_DIMS {HEAD_DIMS}, the head dims the CUDA "
-                         f"flash kernels take; pick --num-feature / "
+                         f"flash forward kernel takes; pick --num-feature / "
                          f"--num-head to give one, or drop --use-pallas")
     return "default"
 

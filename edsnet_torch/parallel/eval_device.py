@@ -3,9 +3,9 @@ keyshot summary (knapsack DP) -> F1, one batch of videos at a time.
 
 Counterpart of edsnet_tpu/parallel/eval_device.py: ``batch_eval_device``
 (the same padding rules), ``_eval_batch_device`` (batched instead of
-vmapped), ``eval_fscore_device`` and ``evaluate_on_device``, on one device
-and without a mesh.  Diversity is computed on the host from the returned
-summaries.
+vmapped), ``_num_scales_of``, ``eval_fscore_device`` and
+``evaluate_on_device``, on one device and without a mesh, for both heads.
+Diversity is computed on the host from the returned summaries.
 """
 from __future__ import annotations
 
@@ -164,10 +164,17 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _num_scales_of(model) -> int:
+    """Boxes per position: the anchor-based head's scales, 1 for an
+    anchor-free head."""
+    scales = getattr(model, "scales", None)
+    return 1 if scales is None else len(scales)
+
+
 def eval_fscore_device(model, prepared: List[Dict],
                        nms_thresh: float) -> torch.Tensor:
     """Mean validation F-score as a device scalar (no host sync)."""
-    num_scales = len(model.scales)
+    num_scales = _num_scales_of(model)
     total = torch.zeros((), dtype=torch.float32, device=_device_of(model))
     count = 0
     for entry in prepared:
@@ -190,7 +197,7 @@ def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
     records repeatedly.  A list given as ``per_video`` receives one dict
     per video: key, fscore, diversity and the frame summary.
     """
-    num_scales = len(model.scales)
+    num_scales = _num_scales_of(model)
     if prepared is None:
         prepared = prepare_eval_batches(records, batch_size, bucket_size,
                                         _device_of(model))

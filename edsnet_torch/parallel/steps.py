@@ -1,9 +1,9 @@
-"""The anchor-based train step: label sampling, forward, masked losses,
+"""The train steps: (anchor-based) label sampling, forward, masked losses,
 backward and the Adam update over one padded batch of videos.
 
 Counterpart of edsnet_tpu/parallel/steps.py (``make_optimizer``,
 ``resolve_batch``, ``_sample_marks``, ``build_ab_cls_labels``,
-``ab_train_step``), on one device.  The step queues its work on the
+``ab_train_step``, ``af_train_step``), on one device.  The step queues its work on the
 device and returns its losses as device tensors: nothing in it waits for
 the device.  The model runs in training mode, so the attention backbone
 takes its dense path with dropout on the attention map, as the TPU
@@ -178,3 +178,39 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     with torch.no_grad():
         return {"loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
                 "loc_loss": (loc * w).sum() / denom}
+
+
+def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                  batch: Dict, *, lambda_reg: float, lambda_ctr: float,
+                  cls_kind: str, reg_kind: str, remat: bool = False,
+                  compute_dtype: str = "float32") -> Dict[str, torch.Tensor]:
+    """One anchor-free step over a padded batch -> {loss, cls_loss,
+    loc_loss, ctr_loss} as device scalars.
+
+    Per video: ``cls_kind`` (--cls-loss) over the mask + ``lambda_reg`` x
+    ``reg_kind`` (--reg-loss) over the target's positions + ``lambda_ctr``
+    x the centerness BCE there; videos are weighted by ``video_valid``
+    alone (a video without positives still counts, unlike the anchor-based
+    step) over ``max(sum of weights, 1)``.  The labels are the batch's, so
+    nothing is drawn but dropout, from the model's own generators;
+    ``remat`` and ``compute_dtype`` as in the module docstring."""
+    batch = resolve_batch(batch)
+    w = batch["video_valid"].to(torch.float32)
+    denom = torch.clamp(w.sum(), min=1.0)
+    target = batch["target"]
+
+    model.train()
+    pred_cls, pred_loc, pred_ctr = train_forward(
+        model, batch["seq"], batch["mask"], remat, compute_dtype)
+    cls = L.af_cls_loss(pred_cls, target, cls_kind, batch["mask"])
+    loc = L.af_loc_loss(pred_loc, batch["af_loc"], target, reg_kind)
+    ctr = L.af_ctr_loss(pred_ctr, batch["af_ctr"], target)
+    loss = ((cls + lambda_reg * loc + lambda_ctr * ctr) * w).sum() / denom
+
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    with torch.no_grad():
+        return {"loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
+                "loc_loss": (loc * w).sum() / denom,
+                "ctr_loss": (ctr * w).sum() / denom}

@@ -1,4 +1,4 @@
-"""Anchor-based training loop on one device.
+"""Training loop on one device, for both heads.
 
 Counterpart of edsnet_tpu/trainer.py:train, without a mesh, resume or the
 host evaluator:
@@ -6,11 +6,13 @@ host evaluator:
   uploaded once, grouped by length bucket into pools, and each epoch's
   batches are composed on the device by a gather (``compose_epoch``), or
   frozen with ``--static-batches``;
-- the step (parallel/steps.py) queues its work and returns device tensors;
+- the step (parallel/steps.py: ``ab_train_step`` or ``af_train_step``, by
+  the model type) queues its work and returns device tensors;
 - every ``--eval-every`` epochs the device evaluator scores the validation
   videos (the model in eval mode, so the attention backbone takes the flash
   kernel on CUDA); the best parameters are kept on the device, and the host
-  waits for the device only at logging epochs (every 30) and at the end,
+  waits for the device only at logging epochs (every 30 anchor-based, 20
+  anchor-free, as in JAX) and at the end,
   where the best checkpoint is written to
   ``{model_dir}/checkpoint/{split}.{idx}.pt``.
 
@@ -33,13 +35,15 @@ from edsnet_torch.models.common import init_weights, set_dropout_generator
 from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.parallel.eval_device import (eval_fscore_device,
                                                prepare_eval_batches)
-from edsnet_torch.parallel.steps import ab_train_step, make_optimizer
+from edsnet_torch.parallel.steps import (ab_train_step, af_train_step,
+                                         make_optimizer)
 from edsnet_torch.utils import checkpoint as ckpt_lib
 from edsnet_torch.utils.profiling import StepTimer
 
 logger = logging.getLogger()
 
-LOG_EVERY = 30  # epochs between host syncs (logging, checkpoint flush)
+# epochs between host syncs (logging, checkpoint flush), per model type
+LOG_EVERY = {"anchor-based": 30, "anchor-free": 20}
 
 
 def _read_records(keys, data_root) -> List[VideoRecord]:
@@ -159,11 +163,20 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                     for pi, idx, valid, frames in compose_epoch()]
         for batch, frames in todo:
             timer.start()
-            epoch_metrics.append(ab_train_step(
-                model, optimizer, batch, label_gen,
-                lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
-                inc_ratio=args.incomplete_sample_ratio, remat=args.remat,
-                compute_dtype=compute_dtype))
+            if args.model == "anchor-based":
+                metrics = ab_train_step(
+                    model, optimizer, batch, label_gen,
+                    lambda_reg=args.lambda_reg,
+                    neg_ratio=args.neg_sample_ratio,
+                    inc_ratio=args.incomplete_sample_ratio, remat=args.remat,
+                    compute_dtype=compute_dtype)
+            else:
+                metrics = af_train_step(
+                    model, optimizer, batch, lambda_reg=args.lambda_reg,
+                    lambda_ctr=args.lambda_ctr, cls_kind=args.cls_loss,
+                    reg_kind=args.reg_loss, remat=args.remat,
+                    compute_dtype=compute_dtype)
+            epoch_metrics.append(metrics)
             timer.stop(frames)
 
         time_list.append(time.time() - start)
@@ -183,9 +196,9 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         fscore_hist.append(val_f)
         epoch_list.append(epoch)
 
-        log_every = max(LOG_EVERY, eval_every)
+        log_every = max(LOG_EVERY[args.model], eval_every)
         if epoch % log_every < eval_every:
-            stats = AverageMeter("loss", "cls_loss", "loc_loss")
+            stats = AverageMeter("loss", "cls_loss", "loc_loss", "ctr_loss")
             for m in epoch_metrics:
                 stats.update(**{k: float(v) for k, v in m.items()})
             epoch_metrics.clear()

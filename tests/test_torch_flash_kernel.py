@@ -43,7 +43,8 @@ def cuda_device():
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("bh,n,d,lens", [
     (4, 192, 64, [150, 150, 100, 100]), (2, 128, 128, [100, 100]),
-    (2, 256, 128, [0, 256]), (4, 128, 32, [128] * 4)])
+    (2, 256, 128, [0, 256]), (4, 128, 32, [128] * 4),
+    (4, 192, 256, [192, 150, 100, 0])])
 def test_kernel_matches_twin_on_card(cuda_device, bh, n, d, lens, precision):
     rng = np.random.RandomState(bh + n + d)
     q, k, v = (rng.randn(bh, n, d).astype(np.float32) for _ in range(3))
@@ -183,6 +184,9 @@ def test_kernel_rejects_bad_shapes(cuda_device):
     rows = torch.zeros(2, 64, 1, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_attention_dq(q, q, q, mask[:, :64], q, rows, rows, rows)
+    q = torch.zeros(2, 64, 256, device=cuda_device)   # forward only
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows, rows)
     q = torch.zeros(2, 64, 64, device=cuda_device)
     with pytest.raises(ValueError, match="dd must be"):
         flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows,

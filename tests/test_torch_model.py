@@ -155,5 +155,6 @@ def test_unported_options_raise():
         get_model("anchor-based", **{**SMALL, "pooling_type": "fft"})
     with pytest.raises(NotImplementedError, match="Queue A"):
         get_model("anchor-based", model_depth="deep", **SMALL)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        get_model("anchor-free", **SMALL)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        get_model("anchor-free", **{**SMALL,
+                                    "model_depth": "local-global-attention"})

@@ -2,8 +2,10 @@
 (edsnet_torch/models/attention.py:flash_route): which passes take the CUDA
 kernel, at which precision, and which head dims fall back to the dense
 path.  The rule is decided from shapes alone, so it is tested here on the
-CPU; the AttentionExtractor at a head dim the kernels do not take is held
-against edsnet_tpu (1e-5)."""
+CPU; the AttentionExtractor at head dim 256 (F 1024, 4 heads, the deep
+anchor-free model's base_model1), which the forward kernel takes and the
+backward kernels do not, is held against edsnet_tpu (1e-5) on the dense
+path and on the flash route's plain twin."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ from edsnet_torch.models.attention import AttentionExtractor, flash_route
 
 @pytest.mark.parametrize("head_dim,want", [
     (16, None), (32, "highest"), (64, "highest"), (128, "highest"),
-    (256, None)])
+    (256, "highest")])
 def test_auto_route_on_cuda_takes_kernel_head_dims_only(head_dim, want):
     assert flash_route(True, False, 2304, head_dim, None) == want
 
@@ -41,22 +43,35 @@ def test_use_pallas_route_precision_and_no_pallas():
     assert flash_route(True, False, 2304, 128, False) is None
 
 
-@pytest.mark.parametrize("head_dim", [16, 256])
+@pytest.mark.parametrize("head_dim", [16, 48])
 def test_use_pallas_with_unsupported_head_dim_raises_on_cuda(head_dim):
     with pytest.raises(ValueError, match=rf"head dim {head_dim} not in "
-                                         rf"HEAD_DIMS \(32, 64, 128\)"):
+                                         rf"HEAD_DIMS \(32, 64, 128, 256\)"):
         flash_route(True, False, 2304, head_dim, True)
 
 
 def test_route_follows_the_kernels_head_dims():
-    assert flash.HEAD_DIMS == (32, 64, 128)
+    assert flash.HEAD_DIMS == (32, 64, 128, 256)
+    assert flash.BWD_HEAD_DIMS == (32, 64, 128)
     for d in flash.HEAD_DIMS:
         assert flash_route(True, False, 64, d, None) == "highest"
+    # the backward kernels' check refuses head dim 256 before any launch
+    q = torch.zeros(2, 64, 256)
+    rows = torch.zeros(2, 64, 1)
+    mask = torch.ones(2, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"head dim 256 not in "
+                                         r"\(32, 64, 128\)"):
+        flash._check("flash_attention_dq", q, mask, {"q": q},
+                     {"m": rows}, flash.BWD_HEAD_DIMS)
+    flash._check("flash_attention_fwd", q, mask, {"q": q}, {})
 
 
 def test_four_heads_at_full_width_match_jax_under_auto_rule():
-    """F 1024 and 4 heads (D = 256, `--num-head 4`): the auto rule keeps
-    the dense path (and would on the card), equal to JAX's output."""
+    """F 1024 and 4 heads (D = 256, `--num-head 4` and the deep anchor-free
+    model's base_model1): the auto rule takes the forward kernel on the
+    card and the dense path on the CPU; the dense path and the flash
+    route's plain twin (use_flash True on the CPU) both equal JAX's
+    output."""
     rng = np.random.RandomState(5)
     b, n, f = 2, 40, 1024
     x = rng.randn(b, n, f).astype(np.float32)
@@ -67,14 +82,17 @@ def test_four_heads_at_full_width_match_jax_under_auto_rule():
                             jnp.asarray(x), jnp.asarray(mask))
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x),
                                    jnp.asarray(mask)))
-    model = AttentionExtractor(4, f).eval()
-    model.load_state_dict(flax_to_state_dict(variables), strict=True)
-    assert flash_route(True, model.training, n, f // 4,
-                            model.use_flash) is None
-    before = flash.flash_attention_fwd.launches
-    with torch.no_grad():
-        got = model(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
-    assert flash.flash_attention_fwd.launches == before
-    for i, n_real in enumerate([40, 27]):
-        np.testing.assert_allclose(got[i, :n_real], want[i, :n_real],
-                                   rtol=1e-5, atol=1e-5)
+    assert flash_route(True, False, n, f // 4, None) == "highest"
+    for use_flash in (None, True):
+        model = AttentionExtractor(4, f, use_flash=use_flash).eval()
+        model.load_state_dict(flax_to_state_dict(variables), strict=True)
+        assert flash_route(False, model.training, n, f // 4,
+                           model.use_flash) == (
+            None if use_flash is None else "default")
+        before = flash.flash_attention_fwd.launches
+        with torch.no_grad():
+            got = model(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+        assert flash.flash_attention_fwd.launches == before
+        for i, n_real in enumerate([40, 27]):
+            np.testing.assert_allclose(got[i, :n_real], want[i, :n_real],
+                                       rtol=1e-5, atol=1e-5)

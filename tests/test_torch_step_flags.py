@@ -440,6 +440,29 @@ def test_untie_flag_trains_tied_trunk(tmp_path, caplog):
                for r in caplog.records)
 
 
+@pytest.mark.parametrize("depth", ["shallow", "deep"])
+def test_untie_flag_keeps_af_trunk_tied(depth, caplog):
+    """The same on anchor-free: edsnet_tpu's get_anchor_free never passes
+    tie_fc_blocks either, so the port logs the flag and builds one tied
+    trunk/fc_block."""
+    kw = dict(base_model="linear", num_feature=FEAT, num_hidden=8,
+              num_head=2, fc_depth=3, orientation="paper",
+              model_depth=depth, untie_fc_blocks=True)
+    jparams = jax_get_model("anchor-free", **kw).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, FEAT)),
+        jnp.ones((1, 8), bool))["params"]
+    assert sorted(jparams["trunk"]) == ["fc1", "fc_block"]
+    caplog.set_level("WARNING")
+    model = get_model("anchor-free", **kw)
+    assert sorted(n for n, _ in model.trunk.named_children()) == [
+        "fc1", "fc_block"]
+    assert len(model.trunk.blocks) == 3
+    assert sorted(state_dict_to_flax(model.state_dict())["trunk"]) == [
+        "fc1", "fc_block"]
+    assert any("--untie-fc-blocks: the trunk stays tied" in r.getMessage()
+               for r in caplog.records)
+
+
 @pytest.mark.parametrize("flags,want", [
     ([], dict(remat=False, compute_dtype="float32")),
     (["--compute-dtype", "bfloat16", "--remat"],

@@ -156,9 +156,11 @@ def test_train_flags_not_served_raise(flags):
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_evaluate.setup(args, port_evaluate.check_train_supported)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue A item 10"):
         port_evaluate.check_train_supported(get_arguments(
-            ["anchor-free", "--device", "cpu"]))
+            ["anchor-free", "--device", "cpu", "--model-depth",
+             "local-global-attention"]))
 
 
 def test_each_cli_rejects_only_its_own_flags():

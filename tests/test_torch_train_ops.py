@@ -18,6 +18,7 @@ from edsnet_tpu.ops import summary as jax_summary
 from edsnet_tpu.parallel import steps as jax_steps
 from edsnet_torch.data import batching
 from edsnet_torch.data.dataset import VideoRecord
+from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.ops import anchors, bbox, knapsack, losses, summary
 from edsnet_torch.parallel import steps
 
@@ -184,8 +185,15 @@ def test_skipped_videos_and_nan():
         [VideoRecord(**r) for r in (nan_rec, good, empty_rec)],
         "anchor-based", anchor_scales=[4, 8])
     assert [it.key for it in items] == [good["key"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batching.prepare_items([VideoRecord(**good)], "anchor-free")
+    af_items = batching.prepare_items(
+        [VideoRecord(**r) for r in (nan_rec, good, empty_rec)],
+        "anchor-free")
+    assert [it.key for it in af_items] == [good["key"]]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue A item 10"):
+        get_model("anchor-free", base_model="linear", num_feature=16,
+                  num_hidden=8, num_head=2, fc_depth=1,
+                  model_depth="local-global-attention")
 
 
 def test_batches_and_pools_match_jax():
