@@ -10,7 +10,10 @@ Phases, each of which must pass (exit code 1 otherwise):
 3. each kernel against its plain PyTorch twin on the card, at small shapes
    (every head dim the kernels take) and at the main path's largest shape;
    the forward also at head dim 256, the deep anchor-free model's first
-   attention at F 1024 (small, and that path's (16, 2304, 256)).
+   attention at F 1024 (small, and that path's (16, 2304, 256)), and at
+   head dim 512, its own kernel, the local-global heads' local attentions
+   (a fully-masked row, N not a multiple of 64, that path's (8, 576, 512),
+   and a NaN made on the card in q, k and v).
    All three kernels run on the TF32 tensor cores at both precisions:
    "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a sum of up
    to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
@@ -99,12 +102,30 @@ Phases, each of which must pass (exit code 1 otherwise):
    attention deep and original predicting over the eval batches (forward
    launches per batch: two on deep, base_model1 at head dim 256 and
    base_model2 at 128, one on original; pred_cls within 1e-4 of the dense
-   route) with one step per bucket; predict, NMS and step times.
+   route) with one step per bucket; predict, NMS and step times;
+12. the paper's poolings and the other attention heads at full width:
+   anchor-based original, deep (--attention-depth 2) and local-global and
+   anchor-free local-global on attention (JAX's parameter counts; the 8
+   videos evaluated on the kernel and the dense route with per-video F
+   equal; the kernel route's pred_cls within 1e-4 of float64 on every eval
+   batch, kernel vs dense printed; forward launches per evaluation 7, 14,
+   35 and 35, 28 of local-global's at head dim 512; a train step per
+   bucket; the evaluated weights saved and reloaded reproducing F);
+   --use-pallas on local-global and on shallow --num-head 2, each
+   launching the head-dim-512 forward, pred_cls within 2^-8 of the dense
+   route; nystromformer at scale 12 with fft, dwt and flat-pooling
+   (JAX's parameter counts, pred_cls within 1e-4 of float64 on every eval
+   batch, a step per bucket, a bf16 step, a remat step bit-equal to the
+   plain one, no kernel), with the TF32 switches off as evaluate.setup
+   leaves them (the poolings' product is cuBLAS's); predict and step
+   times.
 
 The last lines are a JSON object describing each kernel (``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
-evaluate paths, and for the forward its head-dim-256 readings), the
-nvidia-smi line, and {"ok": true, "device": {...}}.  Without a CUDA card,
+evaluate paths, for the forward its head-dim-256 readings, and the
+head-dim-512 instance as an entry of its own with its launches on phase
+12's anchor-based local-global evaluation), the nvidia-smi line, and
+{"ok": true, "device": {...}}.  Without a CUDA card,
 or without the rest of the repository beside this file, it exits non-zero
 before printing a result.
 """
@@ -195,6 +216,7 @@ def launch_counts(flash) -> Dict[str, int]:
 def reset_launches(flash) -> None:
     for fn in port_kernels(flash):
         fn.launches = 0
+    flash.flash_attention_fwd.launches_by_head_dim = {}
 
 
 def flash_case(flash, bh, n, d, lens, seed):
@@ -219,8 +241,16 @@ FLASH_CASES = [(4, 192, 64, [150, 150, 100, 100]),
 # base_model1 at F 1024 (4 heads) on a bucket-2304 eval batch of 4 rows,
 # with row lengths up to the longest synthetic video's 2100
 DEEP_LENS = [2100] * 4 + [1902] * 4 + [1700] * 4 + [1500] * 4
+# head dim 512 is a kernel of its own (O's columns split over two blocks):
+# the local attentions of the local-global heads at F 1024 (2 heads), at
+# bucket 2304 on a buffer of 576 positions, a segment of ceil(n / 4) of
+# each row real
+LOCAL_LENS = [525] * 2 + [476] * 2 + [425] * 2 + [375] * 2
 FWD_CASES = FLASH_CASES + [(4, 192, 256, [192, 150, 100, 0]),
-                           (16, 2304, 256, DEEP_LENS)]
+                           (16, 2304, 256, DEEP_LENS),
+                           (4, 192, 512, [192, 150, 100, 0]),
+                           (2, 100, 512, [100, 61]),
+                           (8, 576, 512, LOCAL_LENS)]
 
 
 def emulated_errors(emulate, want) -> str:
@@ -277,6 +307,30 @@ def check_flash(flash, phases: Phases) -> Dict[str, Dict[int, float]]:
                 lambda **kw: flash.flash_attention_tf32(*args, passes, **kw),
                 want))
     return worst
+
+
+def check_flash_nan(flash, phases: Phases) -> None:
+    """Head dim 512 with a NaN made on the card (0 / 0) in q, in k, and in
+    v's second column slice (the other block's), one head each, the last
+    head clean: at both precisions NaN exactly where the twin gives NaN,
+    and the clean head finite."""
+    q, k, v, mask = flash_case(flash, 4, 128, 512, [128, 90, 128, 128],
+                               seed=31)
+    nan = torch.zeros((), device=q.device) / 0
+    q[0, 5, 3], k[1, 9, 300], v[2, 7, 400] = nan, -nan, nan
+    want = flash.flash_attention_plain(q, k, v, mask)
+    for precision in TOLS:
+        got = flash.flash_attention_fwd(q, k, v, mask, precision=precision)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.isnan(), w.isnan()) for a, w in
+                   ((got[0], want[0]),
+                    (got[1] + got[2].log(), want[1] + want[2].log())))
+        clean = bool(got[0][3].isfinite().all())
+        phases.check(same and clean and bool(want[0][:3].isnan().any()),
+                     f"flash {precision} head dim 512: NaN made on the card "
+                     f"in q, k and v carried where the twin carries it "
+                     f"({int(got[0].isnan().sum())} NaN outputs), the clean "
+                     f"head finite")
 
 
 def grad_limit_ok(got: torch.Tensor, want: torch.Tensor, tol: float = TOL
@@ -665,11 +719,26 @@ def time_kernel(flash, name, shape, n_ops, n_mats, n_rows, call, plain,
     return t
 
 
+def sdpa_backend(q, k, v, attn_mask) -> str:
+    """The backend scaled_dot_product_attention's dispatcher picks for
+    these inputs (torch's own choice function; "not measured" where this
+    torch lacks it)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, False)
+        return SDPBackend(choice).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError) as err:
+        return f"not measured ({type(err).__name__})"
+
+
 def time_kernels(flash, smi: str) -> Dict[str, dict]:
     """Each kernel at (BH, N, D) = (32, 2304, 128), the main path's largest
     shape, and the forward also at (16, 2304, 256), the deep anchor-free
-    path's base_model1, each at both precisions beside its bound, its twin
-    and the library call that computes the same function (CUDA events)."""
+    path's base_model1, and at (8, 2304, 512), the head dim of the
+    local-global heads' local attentions (the same operations and bytes),
+    each at both precisions beside its bound, its twin and the library
+    call that computes the same function (CUDA events)."""
     q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
                     ).cuda()
@@ -682,6 +751,8 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
         lq, lk, lv, attn_mask=attn_mask)
     q2, k2, v2, mask2 = flash_case(flash, 16, 2304, 256, DEEP_LENS, seed=8)
     mask2_lib = (mask2 > 0)[None, :, None, :]
+    q5, k5, v5, mask5 = flash_case(flash, 8, 2304, 512, [2304] * 8, seed=7)
+    mask5_lib = (mask5 > 0)[None, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # per kernel: its shape, operations per BH*N^2*D, [N, D] and [N]
     # tensors read or written once, the call at a precision, its twin and
@@ -708,8 +779,24 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
          lambda p: flash.flash_attention_fwd(q2, k2, v2, mask2, precision=p),
          lambda: flash.flash_attention_plain(q2, k2, v2, mask2),
          lambda: sdpa(q2[None], k2[None], v2[None], attn_mask=mask2_lib),
+         "scaled_dot_product_attention"),
+        ("flash_attention_fwd head dim 512", tuple(q5.shape), 4, 4, 3,
+         lambda p: flash.flash_attention_fwd(q5, k5, v5, mask5, precision=p),
+         lambda: flash.flash_attention_plain(q5, k5, v5, mask5),
+         lambda: sdpa(q5[None], k5[None], v5[None], attn_mask=mask5_lib),
          "scaled_dot_product_attention"))
-    return {row[0]: time_kernel(flash, *row, smi=smi) for row in rows}
+    timing = {row[0]: time_kernel(flash, *row, smi=smi) for row in rows}
+    for name, args in (("flash_attention_fwd", (q, k, v, attn_mask)),
+                       ("flash_attention_fwd head dim 256",
+                        (q2, k2, v2, mask2_lib)),
+                       ("flash_attention_fwd head dim 512",
+                        (q5, k5, v5, mask5_lib))):
+        a, b, c, m = args
+        timing[name]["library_backend"] = sdpa_backend(a[None], b[None],
+                                                       c[None], m)
+        print(f"  [{smi}] {name}: scaled_dot_product_attention took the "
+              f"{timing[name]['library_backend']} backend")
+    return timing
 
 
 HEADLINE_PARAMS = 2_248_843   # nystromformer, scale 12, F 1024, 8 heads
@@ -1405,6 +1492,256 @@ def check_anchor_free(flash, phases: Phases, records, train_videos,
     return launched
 
 
+LG = "local-global-attention"
+# JAX's counts (jax.eval_shape of edsnet_tpu's get_model) at F 1024, 8
+# heads, hidden 128, fc depth 7, --attention-depth 2; and the forward
+# launches per eval batch: original 1, deep 2 (base_model1 twice, shared),
+# local-global 5 (the global attention at head dim 128, four local ones at
+# 512)
+HEAD_CASES = {("anchor-based", "original"): (4_328_195, 1),
+              ("anchor-based", "deep"): (4_342_659, 2),
+              ("anchor-based", LG): (23_221_123, 5),
+              ("anchor-free", LG): (23_221_252, 5)}
+POOLING_PARAMS = {"fft": 2_445_579, "dwt": 2_347_275,
+                  "flat-pooling": 2_445_579}   # nystromformer, scale 12
+
+
+def check_heads_and_poolings(flash, phases: Phases, records, train_videos,
+                             seed: int, smi: str) -> Dict[str, dict]:
+    """Phase 12 at full width (F 1024, 8 heads, hidden 128, fc depth 7,
+    seeded random weights, the 8 videos):
+    - the attention heads, anchor-based original, deep and local-global and
+      anchor-free local-global: JAX's parameter counts; an evaluation of
+      the 8 videos on the kernel route (forward launches per evaluation:
+      7, 14, 35, 35, local-global's 28 at head dim 512) and on the dense
+      route with the same per-video F; the kernel route's pred_cls within
+      1e-4 of float64 on the CPU on every eval batch, kernel vs dense
+      printed; a train step per bucket with finite losses; the evaluated
+      weights saved, reloaded and reproducing the evaluation's F;
+    - --use-pallas on anchor-based local-global and on shallow --num-head
+      2: runs and launches the head-dim-512 instance;
+    - nystromformer at scale 12 with fft, dwt and flat-pooling: JAX's
+      parameter counts, pred_cls within 1e-4 of float64 on the CPU on
+      every eval batch, predict ms at bucket 2304, a step per bucket, a
+      bf16 step and a remat step bit-equal to the plain step; no kernel.
+    The TF32 switches are set as evaluate.setup sets them (off, the
+    default --matmul-precision): windowed_linear's product is cuBLAS's.
+    Returns, per evaluated head, the launch counts and the forward's by
+    head dim."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch.evaluate import setup
+    from edsnet_torch.models.common import set_dropout_generator
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import (_num_scales_of,
+                                                   evaluate_on_device,
+                                                   prepare_eval_batches)
+    from edsnet_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    device = torch.device("cuda")
+    base_args = config_lib.get_arguments(["anchor-based", "--seed",
+                                          str(seed)])
+    setup(base_args)
+    prepared = prepare_eval_batches(records, 4, base_args.bucket_size,
+                                    device)
+    largest = prepared[-1]["tb"]
+
+    def cli(*flags):
+        return config_lib.get_arguments([*flags, "--seed", str(seed)])
+
+    def real_of(model, tb):
+        return tb["mask"].repeat_interleave(_num_scales_of(model), dim=1)
+
+    def predict_all(model):
+        with torch.inference_mode():
+            return [model.predict(e["tb"]["seq"], e["tb"]["mask"])[0]
+                    for e in prepared]
+
+    def cls_gap(model, got, want):
+        return max(float((g - w).abs()[real_of(model, e["tb"])].max())
+                   for g, w, e in zip(got, want, prepared))
+
+    def step_fn(args, model, **flags):
+        set_dropout_generator(model, torch.Generator(device).manual_seed(
+            seed + 1))
+        opt = steps.make_optimizer(model.parameters(), args.lr,
+                                   args.weight_decay)
+        if args.model == "anchor-free":
+            kw = dict(lambda_reg=args.lambda_reg, lambda_ctr=args.lambda_ctr,
+                      cls_kind=args.cls_loss, reg_kind=args.reg_loss)
+            return lambda b: steps.af_train_step(model, opt, b, **kw, **flags)
+        gen = torch.Generator(device).manual_seed(seed + 2)
+        kw = dict(lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
+                  inc_ratio=args.incomplete_sample_ratio)
+        return lambda b: steps.ab_train_step(model, opt, b, gen, **kw, **flags)
+
+    def steps_per_bucket(label, args, model, batches):
+        step = step_fn(args, model)
+        losses = torch.stack([step(b)["loss"] for b in batches]).cpu()
+        print(f"    {label}: one step per bucket "
+              f"{[int(b['seq'].shape[1]) for b in batches]}, losses "
+              f"{[round(float(x), 4) for x in losses]}")
+        phases.check(bool(torch.isfinite(losses).all()),
+                     f"{label}: every step's loss finite")
+        return cuda_ms(lambda: step(batches[-1]), iters=3, warmup=1)
+
+    launched = {}
+    for (model_type, depth), (want_params, per_batch) in HEAD_CASES.items():
+        label = f"{model_type} attention {depth}"
+        args = cli(model_type, "--model-depth", depth)
+        model = seeded_model(args, device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        phases.check(n_params == want_params,
+                     f"{label}: {n_params} parameters (JAX's {want_params})")
+        evaluate_on_device(model, records[:1], args.nms_thresh, batch_size=4,
+                           bucket_size=args.bucket_size)
+        torch.cuda.synchronize()
+        reset_launches(flash)
+        per_video = []
+        t0 = time.perf_counter()
+        mean_f, _ = evaluate_on_device(model, records, args.nms_thresh,
+                                       prepared=prepared, per_video=per_video)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts(flash)
+        by_dim = dict(flash.flash_attention_fwd.launches_by_head_dim)
+        launched[label] = {"counts": counts, "by_head_dim": by_dim}
+        n_batches = len(prepared)
+        want_dims = ({128: n_batches, 512: 4 * n_batches} if depth == LG
+                     else {128: per_batch * n_batches})
+        print(f"  {label}: mean F {mean_f:.6f}; F per video "
+              f"{[round(p['fscore'], 6) for p in per_video]}; launches "
+              f"{counts}, forward by head dim {by_dim}")
+        phases.check(counts == {"flash_attention_fwd": per_batch * n_batches,
+                                "flash_attention_dq": 0,
+                                "flash_attention_dkv": 0}
+                     and by_dim == want_dims,
+                     f"{label} evaluate: {counts['flash_attention_fwd']} "
+                     f"forward launches ({per_batch} per eval batch), by "
+                     f"head dim {by_dim}")
+        phases.check(len(per_video) == len(records)
+                     and all(0.0 <= p["fscore"] <= 1.0 for p in per_video),
+                     f"{label}: every F in [0, 1]")
+        dense = get_model(args.model, **{**vars(args), "use_pallas": False})
+        dense = dense.to(device).eval()               # --no-pallas
+        dense.load_state_dict(model.state_dict())
+        dense_videos = []
+        evaluate_on_device(dense, records, args.nms_thresh, prepared=prepared,
+                           per_video=dense_videos)
+        same_f = [a["fscore"] == b["fscore"] for a, b in zip(per_video,
+                                                             dense_videos)]
+        phases.check(all(same_f), f"{label}: per-video F equal on kernel and "
+                                  f"dense routes ({sum(same_f)}/"
+                                  f"{len(same_f)})")
+        # the kernel route held to float64; kernel vs dense only printed:
+        # on these heads each route sits up to ~6e-5 from float64, so two
+        # f32-level routes can differ by more than 1e-4
+        err = cls_gap(model, predict_all(model), predict_all(dense))
+        print(f"  [{smi}] {label}: pred_cls kernel vs dense route max abs "
+              f"err {err:.3e}")
+        check_against_f64(model, args, prepared, phases,
+                          f"{label} (kernel route)")
+        with tempfile.TemporaryDirectory() as tmp:
+            save_checkpoint(model, f"{tmp}/model.pt")
+            fresh = get_model(args.model, **vars(args))
+            load_checkpoint(fresh, f"{tmp}/model.pt")
+        reloaded_f, _ = evaluate_on_device(fresh.to(device).eval(), records,
+                                           args.nms_thresh, prepared=prepared)
+        phases.check(abs(reloaded_f - mean_f) <= 1e-6,
+                     f"{label}: saved and reloaded weights give F "
+                     f"{reloaded_f:.7f} == {mean_f:.7f}")
+        with torch.inference_mode():
+            predict_ms = cuda_ms(lambda: model.predict(largest["seq"],
+                                                       largest["mask"]),
+                                 iters=5)
+        batches = train_batches(args, train_videos, device)
+        reset_launches(flash)
+        step_ms = steps_per_bucket(label, args, model, batches)
+        phases.check(not any(launch_counts(flash).values()),
+                     f"{label}: no kernel launched in its train steps")
+        print(f"  [{smi}] {label}: eval of {len(records)} videos "
+              f"{eval_ms:.1f} ms; predict at bucket "
+              f"{int(largest['seq'].shape[1])} {predict_ms:.3f} ms; train "
+              f"step at bucket {int(batches[-1]['seq'].shape[1])} "
+              f"{step_ms:.3f} ms")
+        del model, dense, fresh
+        torch.cuda.empty_cache()
+
+    # --use-pallas at head dim 512: local-global's local attentions, and
+    # the shallow head with 2 heads (its one attention at 512)
+    for label, flags, want in (
+            ("anchor-based local-global --use-pallas",
+             ["--model-depth", LG], {128: 1, 512: 4}),
+            ("anchor-based shallow --num-head 2 --use-pallas",
+             ["--num-head", "2"], {512: 1})):
+        args = cli("anchor-based", *flags, "--use-pallas")
+        model = seeded_model(args, device).eval()
+        dense = get_model(args.model, **{**vars(args), "use_pallas": False})
+        dense = dense.to(device).eval()
+        dense.load_state_dict(model.state_dict())
+        reset_launches(flash)
+        with torch.inference_mode():
+            got = model.predict(largest["seq"], largest["mask"])[0]
+            by_dim = dict(flash.flash_attention_fwd.launches_by_head_dim)
+            want_cls = dense.predict(largest["seq"], largest["mask"])[0]
+        err = float((got - want_cls).abs()[real_of(model, largest)].max())
+        print(f"  [{smi}] {label}: predict at bucket "
+              f"{int(largest['seq'].shape[1])}, forward by head dim {by_dim}; "
+              f"pred_cls vs dense route (one TF32 pass) {err:.3e}")
+        phases.check(by_dim == want and bool(torch.isfinite(got).all())
+                     and err <= TOL_DEFAULT,
+                     f"{label}: the head-dim-512 forward launched {by_dim}, "
+                     f"pred_cls within {TOL_DEFAULT:g} of the dense route")
+        del model, dense
+
+    # the paper's poolings on the headline backbone, scale 12
+    reset_launches(flash)
+    for pooling, want_params in POOLING_PARAMS.items():
+        label = f"nystromformer {pooling} scale 12"
+        args = cli("anchor-based", "--base-model", "nystromformer",
+                   "--anchor-scales", "12", "--pooling-type", pooling)
+        setup(args)
+        model = seeded_model(args, device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        phases.check(n_params == want_params,
+                     f"{label}: {n_params} parameters (JAX's {want_params})")
+        check_against_f64(model, args, prepared, phases, label)
+        with torch.inference_mode():
+            predict_ms = cuda_ms(lambda: model.predict(largest["seq"],
+                                                       largest["mask"]),
+                                 iters=5)
+        batches = train_batches(args, train_videos, device)
+        step_ms = steps_per_bucket(label, args, model, batches)
+        big = batches[-1]
+        bf16 = seeded_model(args, device)
+        bf16_losses = step_fn(args, bf16, compute_dtype="bfloat16")(big)
+        bf16_losses = torch.stack(list(bf16_losses.values())).cpu()
+        phases.check(bool(torch.isfinite(bf16_losses).all())
+                     and all(p.dtype == torch.float32
+                             for p in bf16.parameters()),
+                     f"{label} bfloat16 step at bucket "
+                     f"{int(big['seq'].shape[1])}: losses "
+                     f"{[round(float(v), 4) for v in bf16_losses]} finite, "
+                     f"masters float32")
+        plain, remat = seeded_model(args, device), seeded_model(args, device)
+        step_fn(args, plain)(big)
+        step_fn(args, remat, remat=True)(big)
+        gap = max(float((a - b).detach().abs().max())
+                  for a, b in zip(plain.parameters(), remat.parameters()))
+        phases.check(all(torch.equal(a, b) for a, b in
+                         zip(plain.parameters(), remat.parameters())),
+                     f"{label} --remat: updated parameters bit-equal to the "
+                     f"plain step's (max gap {gap:.3e})")
+        print(f"  [{smi}] {label}: predict at bucket "
+              f"{int(largest['seq'].shape[1])} {predict_ms:.3f} ms; train "
+              f"step at bucket {int(big['seq'].shape[1])} {step_ms:.3f} ms")
+        del model, bf16, plain, remat
+    counts = launch_counts(flash)
+    phases.check(not any(counts.values()),
+                 f"no kernel launched on the pooling paths {counts}")
+    return launched
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -1486,6 +1823,7 @@ def main() -> int:
 
     print("phase: kernels vs plain twins")
     fwd_err = check_flash(flash, phases)
+    check_flash_nan(flash, phases)
     dq_err, dkv_err = check_flash_backward(flash, phases)
 
     print("phase: evaluate path at full width")
@@ -1595,6 +1933,9 @@ def main() -> int:
     print("phase: anchor-free at full width")
     af_launches = check_anchor_free(flash, phases, records, train_videos,
                                     val_videos, opts.seed, smi)
+    print("phase: the poolings and the attention heads at full width")
+    head_launches = check_heads_and_poolings(flash, phases, records,
+                                             train_videos, opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
@@ -1636,6 +1977,27 @@ def main() -> int:
                             "max_abs_err": fwd_err["default"][256],
                             "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
+    # the head-dim-512 instance, a kernel of its own: its launches on the
+    # anchor-based local-global evaluate path of phase 12
+    t = timing["flash_attention_fwd head dim 512"]
+    kernels.append({
+        "name": "flash_attention_fwd head dim 512", "route": "cuda",
+        "source": "edsnet_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "edsnet_tpu/kernels/flash_attention.py:58",
+        "launches": head_launches[f"anchor-based attention {LG}"][
+            "by_head_dim"].get(512, 0),
+        "max_abs_err": fwd_err["highest"][512],
+        "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["highest"]["bound_ms"],
+        "bound_by": t["highest"]["bound_by"],
+        "library_ms": t["library_ms"], "shape": [8, 2304, 512],
+        "library_backend": t["library_backend"],
+        "launches_by_path": {
+            path: c["by_head_dim"].get(512, 0)
+            for path, c in head_launches.items()},
+        "default": {"ms": t["default"]["ms"],
+                    "max_abs_err": fwd_err["default"][512],
+                    "bound_ms": t["default"]["bound_ms"]}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

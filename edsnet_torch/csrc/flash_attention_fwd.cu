@@ -38,6 +38,21 @@
 // the 227 KB a block may have, so one block (4 warps) runs on each SM.
 // Bound at (BH, N, D) = (16, 2304, 256): 0.527 ms at 3 passes, 0.176 ms at
 // 1, the same operations as (32, 2304, 128).
+// Head dim 512 (the local attentions of the local-global heads at F 1024,
+// 2 heads each) is a kernel of its own, flash_fwd_split_kernel: O's 512
+// columns would take 256 accumulator registers a thread, and a 64 x 512 q
+// tile alone is 128 KB.  So blockIdx.z picks a slice of DS = 256 of O's
+// columns, and the two blocks of a q tile each:
+//   - hold the whole q tile in shared memory (64 x 516 floats, 132 KB);
+//   - recompute S = q k^T over all 512 columns, with k streamed through
+//     shared memory in chunks of 32 keys x 128 columns;
+//   - multiply P by their own 256 columns of v, streamed in chunks of the
+//     same size.
+// The chunks pass through a ring of two buffers (34 KB), one in flight
+// while the other is multiplied; 166 KB in all, one block per SM.  S is
+// computed twice per q tile, so the kernel does 1.5x the operations of the
+// bound (4*N^2*D for each bh; 0.527 / 0.176 ms at (8, 2304, 512)).  Both
+// slices compute the same m and l; only slice 0 writes them.
 // Why mma.sync and not wgmma: wgmma's TF32 form reads both operands K-major
 // from shared memory, and P V is not K-major in V; a transposed copy of V,
 // and at 3 passes a residual copy of every operand, would not fit beside
@@ -204,6 +219,199 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D, int DS>
+struct SplitLayout {
+  static constexpr int CH = 128;     // columns of a streamed chunk
+  static constexpr int LDQ = D + 4;  // padded row strides, floats
+  static constexpr int LDC = CH + 4;
+  static constexpr int KC = D / CH;  // k chunks of a key tile, then
+  static constexpr int VC = DS / CH; // the v chunks of the block's slice
+  static constexpr int kQ = BQ * LDQ;
+  static constexpr int kChunk = BK * LDC;
+  static constexpr size_t kBytes =
+      (kQ + STAGES * kChunk) * sizeof(float) + STAGES * BK * sizeof(int);
+  static_assert(D % DS == 0 && DS % CH == 0, "slices of whole chunks");
+  // chunk i of a key tile sits in ring slot i % STAGES whatever the tile
+  static_assert((KC + VC) % STAGES == 0, "whole key tiles per ring turn");
+};
+
+template <int D, int DS, int PASSES>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const int* __restrict__ mask, float* __restrict__ out,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int n, float scale) {
+  using L = SplitLayout<D, DS>;
+  constexpr int NT = BK / 8;      // 8-key column tiles of S
+  constexpr int CT = L::CH / 8;   // 8-wide steps of a chunk
+  constexpr int DT = DS / 8;      // 8-wide column tiles of the O slice
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ring = qs + L::kQ;
+  int* ms = reinterpret_cast<int*>(ring + STAGES * L::kChunk);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int col0 = blockIdx.z * DS;  // the block's slice of O's columns
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const size_t row_base = static_cast<size_t>(bh) * n;
+  const int n_tiles = n / BK;
+
+  // chunk i of key tile j into ring slot i % STAGES: k's columns
+  // [i CH, (i + 1) CH) for i < KC, then v's columns of the slice; the
+  // first chunk brings the tile's mask into mask slot j % STAGES
+  auto load_chunk = [&](int j, int i) {
+    const size_t at = base + static_cast<size_t>(j) * BK * D;
+    const float* src = i < L::KC ? k + at + i * L::CH
+                                 : v + at + col0 + (i - L::KC) * L::CH;
+    tf32::copy_tile<L::CH, THREADS>(ring + (i % STAGES) * L::kChunk, L::LDC,
+                                    src, D, BK, tid);
+    if (i == 0 && tid < BK / 4)
+      tf32::cp_async16(ms + (j % STAGES) * BK + 4 * tid,
+                       mask + row_base + j * BK + 4 * tid);
+  };
+  // wait for chunk i of tile j with the next chunk in flight; the caller
+  // ends its use of the chunk with __syncthreads()
+  auto next_chunk = [&](int j, int i) -> const float* {
+    if (i + 1 < L::KC + L::VC)
+      load_chunk(j, i + 1);
+    else if (j + 1 < n_tiles)
+      load_chunk(j + 1, 0);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+    return ring + (i % STAGES) * L::kChunk;
+  };
+
+  tf32::copy_rows<D, THREADS>(qs, L::LDQ, q + base + static_cast<size_t>(q0) * D,
+                              BQ, tid);
+  load_chunk(0, 0);
+  tf32::cp_async_commit();
+
+  // rows g (h = 0) and g + 8 (h = 1) of the warp's 16
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  const float* qw = qs + warp * 16 * L::LDQ;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // S = q k^T over all D columns, one k chunk at a time
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::KC; ++c) {
+      const float* ks = next_chunk(j, c);
+#pragma unroll 4
+      for (int kk = 0; kk < CT; ++kk) {
+        const auto a =
+            tf32::load_a<PASSES>(qw + c * L::CH + 8 * kk, L::LDQ, g, t);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          tf32::mma<PASSES>(s[nt], a,
+                            tf32::load_bt<PASSES>(ks + 8 * nt * L::LDC + 8 * kk,
+                                                  L::LDC, g, t));
+      }
+      __syncthreads();  // a later chunk overwrites this slot
+    }
+
+    // scale, mask and online softmax, as flash_fwd_kernel
+    const int* mk = ms + (j % STAGES) * BK;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int km = mk[8 * nt + 2 * t + (e & 1)];
+        s[nt][e] = km > 0 ? s[nt][e] * scale : (km == 0 ? NEG : NEG2);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = s[0][2 * h];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[h], mx);
+      const float alpha = expf(m_r[h] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = expf(s[nt][e] - m_new);
+          rs += s[nt][e];
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_r[h] = l_r[h] * alpha + rs;
+      m_r[h] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        o[dt][2 * h] *= alpha;
+        o[dt][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O slice += P v slice, one v chunk at a time, P from the accumulator
+#pragma unroll
+    for (int c = 0; c < L::VC; ++c) {
+      const float* vs = next_chunk(j, L::KC + c);
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        const auto a = tf32::acc_as_a<PASSES>(s[kk]);
+        const float* vk = vs + 8 * kk * L::LDC;
+#pragma unroll
+        for (int dt = 0; dt < CT; ++dt)
+          tf32::mma<PASSES>(o[c * CT + dt], a,
+                            tf32::load_b_renamed<PASSES>(vk + 8 * dt, L::LDC,
+                                                         g, t));
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    const float l = l_r[h] < 1e-30f ? 1e-30f : l_r[h];  // NaN stays NaN
+    float* orow = out + base + static_cast<size_t>(r) * D + col0;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(orow + 8 * dt + 2 * t) =
+          make_float2(o[dt][2 * h] / l, o[dt][2 * h + 1] / l);
+    if (blockIdx.z == 0 && t == 0) {
+      m_out[row_base + r] = m_r[h];
+      l_out[row_base + r] = l;
+    }
+  }
+}
+
+template <int D, int DS, int PASSES>
+cudaError_t launch_split(const float* q, const float* k, const float* v,
+                         const int* mask, float* out, float* m, float* l,
+                         int bh, int n, float scale, cudaStream_t stream) {
+  const size_t bytes = SplitLayout<D, DS>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_split_kernel<D, DS, PASSES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n / BQ, bh, D / DS);
+  flash_fwd_split_kernel<D, DS, PASSES><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, mask, out, m, l, n, scale);
+  return cudaGetLastError();
+}
+
 template <int D, int PASSES>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const int* mask, float* out, float* m, float* l, int bh,
@@ -234,6 +442,9 @@ cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
     case 256:
       return launch<256, PASSES>(q, k, v, mask, out, m, l, bh, n, scale,
                                  stream);
+    case 512:
+      return launch_split<512, 256, PASSES>(q, k, v, mask, out, m, l, bh, n,
+                                            scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -243,7 +454,7 @@ cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
 
 // q, k, v, out: [bh, n, d] f32 contiguous, 16-byte aligned; mask: [bh, n]
 // int32; m, l: [bh, n] f32.  n must be a multiple of 64, d one of 32, 64,
-// 128, 256 and passes 1 or 3.  Launches on `stream` and returns the launch's
+// 128, 256, 512 and passes 1 or 3.  Launches on `stream` and returns the launch's
 // cudaError_t (0 = success).
 extern "C" int edsnet_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* mask,

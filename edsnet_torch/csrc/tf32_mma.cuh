@@ -214,16 +214,23 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy `rows` rows of `width` floats from global memory (row stride
-// `width`) into shared memory (row stride `ld`), 16 bytes a thread at a
+// `src_ld`) into shared memory (row stride `ld`), 16 bytes a thread at a
 // time over `threads` threads.
 template <int width, int threads>
-__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src,
-                                          int rows, int tid) {
+__device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
+                                          int src_ld, int rows, int tid) {
   constexpr int kChunks = width / 4;
   for (int c = tid; c < rows * kChunks; c += threads) {
     const int r = c / kChunks, col = (c % kChunks) * 4;
-    cp_async16(dst + r * ld + col, src + static_cast<size_t>(r) * width + col);
+    cp_async16(dst + r * ld + col, src + static_cast<size_t>(r) * src_ld + col);
   }
+}
+
+// copy_tile of whole rows: the global row stride is `width`.
+template <int width, int threads>
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src,
+                                          int rows, int tid) {
+  copy_tile<width, threads>(dst, ld, src, width, rows, tid);
 }
 
 // Round in place the chunks that copy_rows<width, threads> gave this

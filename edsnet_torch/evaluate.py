@@ -56,15 +56,10 @@ def check_model_supported(args) -> None:
         _todo("--tensor-parallel", 13)
     if args.num_devices > 1:
         _todo("--num-devices > 1", 13)
-    if args.model == "anchor-based":
-        if args.model_depth != "shallow":
-            _todo(f"--model-depth {args.model_depth}", 10)
-        if args.pooling_type != "roi":
-            _todo(f"--pooling-type {args.pooling_type}", 10)
-    elif args.model_depth == "local-global-attention":
-        # anchor-free serves shallow, deep and original and ignores
-        # --pooling-type; any other depth is get_model's ValueError
-        _todo(f"anchor-free --model-depth {args.model_depth}", 10)
+    if args.model == "anchor-based" and args.model_depth == "cross-attention":
+        # the motion head; anchor-free has no such depth (get_model's
+        # ValueError, as in JAX)
+        _todo("--model-depth cross-attention", 10)
     if args.matmul_precision == "bfloat16":
         _todo("--matmul-precision bfloat16", 14)
 

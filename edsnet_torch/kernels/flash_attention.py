@@ -33,7 +33,9 @@ fully-masked row contributes to dv and not to dk.
 Each kernel wrapper (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``) takes the twin only for CPU tensors (the tests); a
 CUDA tensor launches the kernel or raises.  Its ``.launches`` counts kernel
-launches.  ``flash_attention`` is differentiable through ``_FlashAttention``,
+launches; the forward's ``.launches_by_head_dim`` splits its count by head
+dim, since head dim 512 is a kernel of its own (``flash_fwd_split_kernel``:
+O's columns split over two blocks).  ``flash_attention`` is differentiable through ``_FlashAttention``,
 whose backward runs the two backward kernels.
 """
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 
 NEG = -1e30
 BLOCK = 64
-HEAD_DIMS = (32, 64, 128, 256)     # the forward kernel's head dims
+HEAD_DIMS = (32, 64, 128, 256, 512)   # the forward kernel's head dims
 BWD_HEAD_DIMS = (32, 64, 128)      # the backward kernels' (dq, dk/dv)
 PRECISIONS = ("default", "highest")
 PASSES = {"default": 1, "highest": 3}   # TF32 products per matrix product
@@ -293,10 +295,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(name, "edsnet_flash_attention_fwd", (q, k, v, mask, out, m, l),
             passes)
     flash_attention_fwd.launches += 1
+    by_dim = flash_attention_fwd.launches_by_head_dim
+    by_dim[q.shape[-1]] = by_dim.get(q.shape[-1], 0) + 1
     return out, m, l
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_head_dim = {}
 
 
 def flash_attention_dq(q, k, v, mask, g, m, l, dd, *,

@@ -15,11 +15,12 @@ JAX's length threshold does):
 - training passes always take the dense path;
 - None (auto): the flash kernel at precision "highest" on a CUDA device
   when the head dim D is one the forward kernel takes (``HEAD_DIMS``:
-  32, 64, 128 and 256, the last for the deep anchor-free model's
-  ``base_model1`` at F 1024) and N >= ``FLASH_MIN_LEN``; otherwise the
-  dense path.  On the CPU the dense path runs, as JAX's auto rule keeps the
-  kernel off away from its accelerator, and e.g. ``--num-feature 32
-  --num-head 2`` (D = 16) runs dense on the card;
+  32, 64, 128, 256 and 512; 256 for the deep anchor-free model's
+  ``base_model1`` at F 1024, 512 for the local attentions of the
+  local-global heads, 2 heads at F 1024) and N >= ``FLASH_MIN_LEN``;
+  otherwise the dense path.  On the CPU the dense path runs, as JAX's auto
+  rule keeps the kernel off away from its accelerator, and e.g.
+  ``--num-feature 32 --num-head 2`` (D = 16) runs dense on the card;
 - True (--use-pallas): the flash route on any device at N >=
   ``FLASH_MIN_LEN``, precision "default" (on the CPU that is the kernel's
   plain twin, which takes any D); on a CUDA device a head dim outside
@@ -27,7 +28,7 @@ JAX's length threshold does):
 - False (--no-pallas): always the dense path.
 The backward kernels take D up to 128 (``BWD_HEAD_DIMS``): the flash route
 is differentiated only by callers of ``flash_attention``, never by a
-training pass here, and at D = 256 its backward raises.
+training pass here, and at D = 256 or 512 its backward raises.
 """
 from __future__ import annotations
 

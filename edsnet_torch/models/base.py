@@ -10,9 +10,9 @@ route from its shapes alone, before any launch
 (``models/attention.py:flash_route``):
 - training passes always take the dense path;
 - None (auto): the flash kernel at precision "highest" on a CUDA device
-  when the head dim is one the forward kernel takes (32, 64, 128, 256),
-  else the dense path (so ``--num-feature 32 --num-head 2``, head dim 16,
-  runs dense on the card);
+  when the head dim is one the forward kernel takes (32, 64, 128, 256,
+  512), else the dense path (so ``--num-feature 32 --num-head 2``, head
+  dim 16, runs dense on the card);
 - True (--use-pallas): the flash route at precision "default"; on a CUDA
   device a head dim the kernels do not take raises;
 - False (--no-pallas): always the dense path.

@@ -114,6 +114,17 @@ def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor] = None
     return x * mask[..., None].to(x.dtype)
 
 
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12
+                 ) -> torch.Tensor:
+    """x over its L2 norm along ``dim``, floored at ``eps`` (torch's
+    ``F.normalize``).  The double ``where`` keeps the gradient of an
+    all-zero row finite (0): the norm's derivative at 0 is infinite, and
+    even a zero cotangent through a plain floor makes it NaN."""
+    sq = (x * x).sum(dim=dim, keepdim=True)
+    safe = torch.sqrt(torch.where(sq > 0, sq, 1.0))
+    return x / torch.clamp(torch.where(sq > 0, safe, 0.0), min=eps)
+
+
 class Dropout(nn.Module):
     """Inverted dropout that draws its keep mask from ``self.generator``
     (the trainer's dropout stream, see ``set_dropout_generator``), or from

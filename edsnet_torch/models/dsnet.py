@@ -1,22 +1,27 @@
-"""Anchor-based DSNet head (shallow depth, ROI pooling), batched + masked.
+"""Anchor-based DSNet heads, batched + masked: shallow (ROI, flat, FFT or
+DWT pooling), original, deep and local-global.
 
 Counterpart of edsnet_tpu/models/dsnet.py: ``_decode_predictions``,
-``_FcTrunk`` (weight-tied by default), ``_AnchorHeads.fused_roi`` and
-``DSNet``.  Submodule names follow the flax param tree so the weight bridge
+``_FcTrunk`` (weight-tied by default), ``_AnchorHeads`` (its fused
+formulations, the ones JAX's CLIs run), ``DSNet``, ``DSNetOriginal``,
+``DSNetDeepAttention`` and ``DSNetMultiAttention`` (the motion head,
+``DSNetMotionFeatures``, is not ported: ROADMAP Queue A item 10).
+Submodule names follow the flax param tree so the weight bridge
 (convert.py) maps names one to one.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from edsnet_torch.models.base import build_base_model
-from edsnet_torch.models.common import (FcBlock, LayerNorm, Linear,
+from edsnet_torch.models.common import (Dropout, FcBlock, LayerNorm, Linear,
                                         apply_mask, promote)
-from edsnet_torch.models.poolings import roi_multi_scale
+from edsnet_torch.models.encoder import LocalGlobalEncoder
+from edsnet_torch.models.poolings import Pooling, roi_multi_scale
 from edsnet_torch.ops.anchors import anchor_scales_list, get_anchors
 
 
@@ -62,7 +67,7 @@ class _FcTrunk(nn.Module):
 
 class _AnchorHeads(nn.Module):
     """fc_cls (sigmoid) + fc_loc with the projections hoisted before the
-    linear ROI pooling: pool(x) @ W + b == pool(x @ W) + b, and the bias
+    linear poolings: pool(x) @ W + b == pool(x @ W) + b, and the bias
     stays outside the pool (its zero padding would average it)."""
 
     def __init__(self, num_hidden: int):
@@ -70,19 +75,57 @@ class _AnchorHeads(nn.Module):
         self.fc_cls = Linear(num_hidden, 1)
         self.fc_loc = Linear(num_hidden, 2)
 
-    def fused_roi(self, out: torch.Tensor, scales: Sequence[int]
+    def fused_roi(self, out: torch.Tensor, scales: Sequence[int],
+                  fine_loc: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ROI heads; with ``fine_loc`` (flat-pooling) fc_loc reads that
+        already pooled [B, N, H] tensor instead, at the one scale."""
         zc = F.linear(*promote(out, self.fc_cls.weight))
+        if fine_loc is not None:
+            pred_cls = torch.sigmoid(roi_multi_scale(zc, scales)[..., 0]
+                                     + self.fc_cls.bias[0])
+            return pred_cls, self.fc_loc(fine_loc[:, :, None, :])
         zl = F.linear(*promote(out, self.fc_loc.weight))
         pooled = roi_multi_scale(torch.cat([zc, zl], dim=-1), scales)
         pred_cls = torch.sigmoid(pooled[..., 0] + self.fc_cls.bias[0])
         pred_loc = pooled[..., 1:] + self.fc_loc.bias
         return pred_cls, pred_loc
 
+    def fused_linear_coarse(self, out: torch.Tensor,
+                            coarse_fn: Callable[[torch.Tensor], torch.Tensor],
+                            fine: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fft / dwt heads: both coarse maps are linear and act on each
+        channel alone, so fc_cls(coarse(out)) == coarse(fc_cls(out)) and
+        the trunk is contracted to one channel before the pooling; fc_loc
+        reads the nonlinear fine tensor.  -> cls [B, N, 1], loc
+        [B, N, 1, 2]."""
+        zc = F.linear(*promote(out, self.fc_cls.weight))
+        pred_cls = torch.sigmoid(coarse_fn(zc) + self.fc_cls.bias[0])
+        return pred_cls, self.fc_loc(fine[:, :, None, :])
 
-class DSNet(nn.Module):
-    """The EDSNet anchor-based head, shallow depth, ROI pooling;
-    ``tie_fc_blocks`` as ``_FcTrunk``'s."""
+
+class _AnchorBased(nn.Module):
+    """The shared deterministic decode of the anchor-based heads; each
+    sets ``scales`` (the anchor scales, also read by the evaluator)."""
+
+    scales: Sequence[int]
+
+    def predict(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Deterministic forward + anchor decode; needs eval mode."""
+        if self.training:
+            raise RuntimeError(f"{type(self).__name__}.predict is the "
+                               f"deterministic pass: call model.eval() first")
+        pred_cls, pred_loc = self(x, mask)
+        return _decode_predictions(pred_cls, pred_loc, self.scales)
+
+
+class DSNet(_AnchorBased):
+    """The EDSNet anchor-based head, shallow depth: backbone + residual,
+    LayerNorm, the fc trunk (``tie_fc_blocks`` as ``_FcTrunk``'s), the
+    mask, and ROI pooling or, at the single scale ``anchor_scales[0]``,
+    the flat / fft / dwt ``Pooling``."""
 
     def __init__(self, base_model: str, num_feature: int, num_hidden: int,
                  anchor_scales: Sequence[int], num_head: int,
@@ -90,16 +133,19 @@ class DSNet(nn.Module):
                  use_pallas: Optional[bool] = None,
                  orientation: str = "paper", tie_fc_blocks: bool = True):
         super().__init__()
-        if pooling_type != "roi":
-            raise NotImplementedError(
-                f"--pooling-type {pooling_type} is not ported yet (ROADMAP.md "
-                f"Queue A item 10); this slice serves roi pooling")
         self.scales = anchor_scales_list(anchor_scales)
+        self.pooling_type = pooling_type
+        if pooling_type != "roi" and len(self.scales) != 1:
+            raise ValueError(f"{pooling_type} pooling uses the single scale "
+                             f"anchor_scales[0]; got {self.scales}")
         self.base_model = build_base_model(base_model, num_feature, num_head,
                                            use_pallas, orientation)
         self.layer_norm = LayerNorm(num_feature)
         self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth,
                               tie_fc_blocks)
+        if pooling_type != "roi":
+            self.pooling = Pooling(self.scales, pooling_type, num_hidden,
+                                   num_hidden, emit_coarse=False)
         self.heads = _AnchorHeads(num_hidden)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
@@ -109,13 +155,96 @@ class DSNet(nn.Module):
         out = self.base_model(x, mask) + x
         out = self.trunk(self.layer_norm(out))
         out = apply_mask(out, mask)
+        if self.pooling_type == "roi":
+            return self.heads.fused_roi(out, self.scales)
+        (fine,) = self.pooling(out)
+        if self.pooling_type == "flat-pooling":
+            return self.heads.fused_roi(out, self.scales, fine_loc=fine)
+        return self.heads.fused_linear_coarse(out, self.pooling.coarse, fine)
+
+
+class DSNetOriginal(_AnchorBased):
+    """The reference's DSNet: attention + residual, LayerNorm, the mask,
+    ROI pooling of the F-wide features, then fc1 -> tanh -> Dropout(0.5)
+    -> fc1_norm -> fc_cls / fc_loc.  Only the attention backbone, as in
+    JAX (whose reference asserts it)."""
+
+    def __init__(self, base_model: str, num_feature: int, num_hidden: int,
+                 anchor_scales: Sequence[int], num_head: int,
+                 use_pallas: Optional[bool] = None):
+        super().__init__()
+        if base_model != "attention":
+            raise ValueError(f"Original model works best in attention base "
+                             f"model (--base-model attention), not "
+                             f"{base_model}")
+        self.scales = anchor_scales_list(anchor_scales)
+        self.base_model = build_base_model(base_model, num_feature, num_head,
+                                           use_pallas)
+        self.layer_norm = LayerNorm(num_feature)
+        self.fc1 = Linear(num_feature, num_hidden)
+        self.dropout = Dropout(0.5)
+        self.fc1_norm = LayerNorm(num_hidden)
+        self.fc_cls = Linear(num_hidden, 1)
+        self.fc_loc = Linear(num_hidden, 2)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = self.layer_norm(self.base_model(x, mask) + x)
+        pooled = roi_multi_scale(apply_mask(out, mask), self.scales)
+        h = self.fc1_norm(self.dropout(torch.tanh(self.fc1(pooled))))
+        return torch.sigmoid(self.fc_cls(h)[..., 0]), self.fc_loc(h)
+
+
+class DSNetDeepAttention(_AnchorBased):
+    """``base_model1`` applied ``attention_depth`` times with shared
+    weights, residual around the first and every even layer after it (the
+    reference also runs the odd layers and drops their output; that dead
+    forward is skipped, as in JAX), no LayerNorm, then the trunk, the mask
+    and the ROI heads."""
+
+    def __init__(self, base_model: str, num_feature: int, num_hidden: int,
+                 anchor_scales: Sequence[int], num_head: int, fc_depth: int,
+                 attention_depth: int, use_pallas: Optional[bool] = None,
+                 orientation: str = "paper", tie_fc_blocks: bool = True):
+        super().__init__()
+        self.scales = anchor_scales_list(anchor_scales)
+        self.attention_depth = attention_depth
+        self.base_model1 = build_base_model(base_model, num_feature, num_head,
+                                            use_pallas, orientation)
+        self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth,
+                              tie_fc_blocks)
+        self.heads = _AnchorHeads(num_hidden)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x + self.base_model1(x, mask)
+        for i in range(self.attention_depth - 1):
+            if i % 2 == 0:
+                x = x + self.base_model1(x, mask)
+        out = apply_mask(self.trunk(x), mask)
         return self.heads.fused_roi(out, self.scales)
 
-    def predict(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+
+class DSNetMultiAttention(_AnchorBased):
+    """The local-global encoder (``multiattentionblock``: 4 segments, 2
+    local heads) + residual, no LayerNorm, then the trunk, the mask and
+    the ROI heads."""
+
+    def __init__(self, base_model: str, num_feature: int, num_hidden: int,
+                 anchor_scales: Sequence[int], num_head: int, fc_depth: int,
+                 use_pallas: Optional[bool] = None,
+                 orientation: str = "paper", tie_fc_blocks: bool = True):
+        super().__init__()
+        self.scales = anchor_scales_list(anchor_scales)
+        self.multiattentionblock = LocalGlobalEncoder(
+            base_model, orientation, num_feature, num_head, num_segments=4,
+            local_attention_head=2, use_pallas=use_pallas)
+        self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth,
+                              tie_fc_blocks)
+        self.heads = _AnchorHeads(num_hidden)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward + anchor decode; needs eval mode."""
-        if self.training:
-            raise RuntimeError("DSNet.predict is the deterministic pass: "
-                               "call model.eval() first")
-        pred_cls, pred_loc = self(x, mask)
-        return _decode_predictions(pred_cls, pred_loc, self.scales)
+        out = x + self.multiattentionblock(x, mask)
+        out = apply_mask(self.trunk(out), mask)
+        return self.heads.fused_roi(out, self.scales)

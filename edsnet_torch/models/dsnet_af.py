@@ -1,8 +1,8 @@
 """Anchor-free DSNet heads (FCOS-style cls / loc / ctr), batched + masked.
 
 Counterpart of edsnet_tpu/models/dsnet_af.py: ``_AFHeads``,
-``_af_predict``, ``DSNetAF`` (shallow), ``DSNetAFOriginal`` and
-``DSNetAFDeepAttention``.  Each head returns per position pred_cls [B, N]
+``_af_predict``, ``DSNetAF`` (shallow), ``DSNetAFOriginal``,
+``DSNetAFDeepAttention`` and ``DSNetAFMultiAttention`` (local-global).  Each head returns per position pred_cls [B, N]
 in (0, 1), pred_loc [B, N, 2] = exp(raw) (l, r) extents and pred_ctr
 [B, N] in (0, 1); ``predict`` scales cls by centerness and the mask,
 normalises each row by its max and decodes (i - l, i + r + 1) boxes.
@@ -22,6 +22,7 @@ from torch import nn
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import Dropout, LayerNorm, Linear
 from edsnet_torch.models.dsnet import _FcTrunk
+from edsnet_torch.models.encoder import LocalGlobalEncoder
 from edsnet_torch.ops.anchor_free import offset2bbox
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -136,3 +137,24 @@ class DSNetAFDeepAttention(_AnchorFree):
         out1 = self.base_model1(x, mask)
         out = x + out1 + self.base_model2(out1, mask)
         return self.heads(self.trunk(self.layer_norm(out)))
+
+
+class DSNetAFMultiAttention(_AnchorFree):
+    """The local-global encoder (``multiattention``: 4 segments, 2 local
+    heads) with no residual, then the trunk and the three heads."""
+
+    def __init__(self, base_model: str, num_feature: int, num_hidden: int,
+                 num_head: int, fc_depth: int = 5,
+                 use_pallas: Optional[bool] = None,
+                 orientation: str = "paper", tie_fc_blocks: bool = True):
+        super().__init__()
+        self.multiattention = LocalGlobalEncoder(
+            base_model, orientation, num_feature, num_head, num_segments=4,
+            local_attention_head=2, use_pallas=use_pallas)
+        self.trunk = _FcTrunk(num_feature, num_hidden, fc_depth,
+                              tie_fc_blocks)
+        self.heads = _AFHeads(num_hidden)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Outputs:
+        return self.heads(self.trunk(self.multiattention(x, mask)))

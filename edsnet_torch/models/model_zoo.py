@@ -1,15 +1,16 @@
 """Model registry: name + depth -> head module.
 
 Counterpart of edsnet_tpu/models/model_zoo.py:get_model, get_anchor_based
-and get_anchor_free.  This port serves the anchor-based shallow head and
-the anchor-free shallow, deep and original heads.
+and get_anchor_free.  Both factories build every depth but
+``cross-attention`` (the motion head, ROADMAP Queue A item 10).
 
 ``--untie-fc-blocks`` does not reach the model, as in the reference, whose
 factories never pass ``tie_fc_blocks`` to a head: the CLIs build the tied
 trunk whatever the flag says, and say so in the log.  Untied blocks exist
-at the module level (``DSNet(tie_fc_blocks=False)``, likewise ``DSNetAF``).
-``--pooling-type`` does not reach an anchor-free head either: JAX's
-``get_anchor_free`` takes none.
+at the module level (``DSNet(tie_fc_blocks=False)``, likewise the other
+heads with a trunk).  ``--pooling-type`` reaches only the anchor-based
+shallow head, and ``--attention-depth`` only the anchor-based deep one, as
+in JAX; the anchor-free factory takes neither, nor ``--anchor-scales``.
 """
 from __future__ import annotations
 
@@ -18,14 +19,19 @@ from typing import Optional
 
 from torch import nn
 
-from edsnet_torch.models.dsnet import DSNet
+from edsnet_torch.models.dsnet import (DSNet, DSNetDeepAttention,
+                                       DSNetMultiAttention, DSNetOriginal)
 from edsnet_torch.models.dsnet_af import (DSNetAF, DSNetAFDeepAttention,
+                                          DSNetAFMultiAttention,
                                           DSNetAFOriginal)
 
 logger = logging.getLogger(__name__)
 
 MODEL_DEPTHS = ("shallow", "deep", "local-global-attention", "original",
                 "cross-attention")
+UNPORTED_DEPTH = ("--model-depth cross-attention is not ported yet "
+                  "(ROADMAP.md Queue A item 10: motion batching, "
+                  "DSNetMotionFeatures, ClassicEncoder)")
 
 
 def _log_untie(untie_fc_blocks: bool) -> None:
@@ -35,14 +41,9 @@ def _log_untie(untie_fc_blocks: bool) -> None:
                        "(its model factories never pass tie_fc_blocks)")
 
 
-def _unported_depth(model_depth: str, served: str):
-    return NotImplementedError(
-        f"--model-depth {model_depth} is not ported yet (ROADMAP.md Queue A "
-        f"item 10); this port serves {served}")
-
-
 def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, model_depth="shallow",
+                     attention_depth: int = 2,
                      use_pallas: Optional[bool] = None,
                      orientation: str = "paper", untie_fc_blocks=False,
                      **kwargs) -> nn.Module:
@@ -54,8 +55,19 @@ def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
         return DSNet(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, use_pallas,
                      orientation)
-    if model_depth in MODEL_DEPTHS:
-        raise _unported_depth(model_depth, "the shallow anchor-based head")
+    if model_depth == "deep":
+        return DSNetDeepAttention(base_model, num_feature, num_hidden,
+                                  anchor_scales, num_head, fc_depth,
+                                  attention_depth, use_pallas, orientation)
+    if model_depth == "local-global-attention":
+        return DSNetMultiAttention(base_model, num_feature, num_hidden,
+                                   anchor_scales, num_head, fc_depth,
+                                   use_pallas, orientation)
+    if model_depth == "original":
+        return DSNetOriginal(base_model, num_feature, num_hidden,
+                             anchor_scales, num_head, use_pallas)
+    if model_depth == "cross-attention":
+        raise NotImplementedError(UNPORTED_DEPTH)
     raise ValueError(f"Invalid model depth {model_depth}")
 
 
@@ -64,8 +76,7 @@ def get_anchor_free(base_model, num_feature, num_hidden, num_head, fc_depth,
                     orientation: str = "paper", untie_fc_blocks=False,
                     **kwargs) -> nn.Module:
     """The anchor-free head of ``model_depth``; the other arguments as
-    ``get_anchor_based``'s (``--pooling-type`` and ``--anchor-scales`` are
-    ignored, as in JAX)."""
+    ``get_anchor_based``'s."""
     _log_untie(untie_fc_blocks)
     if model_depth == "shallow":
         return DSNetAF(base_model, num_feature, num_hidden, num_head,
@@ -78,8 +89,10 @@ def get_anchor_free(base_model, num_feature, num_hidden, num_head, fc_depth,
         return DSNetAFOriginal(base_model, num_feature, num_hidden, num_head,
                                use_pallas)
     if model_depth == "local-global-attention":
-        raise _unported_depth(model_depth, "the shallow, deep and original "
-                                           "anchor-free heads")
+        return DSNetAFMultiAttention(base_model, num_feature, num_hidden,
+                                     num_head, fc_depth, use_pallas,
+                                     orientation)
+    # JAX's get_anchor_free has no cross-attention branch: its ValueError
     raise ValueError(f"Invalid model depth {model_depth}")
 
 

@@ -302,9 +302,11 @@ def test_af_heads_match_jax(base, depth):
 
 
 def test_unported_af_depths_raise():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 10"):
-        get_model("anchor-free", **_kwargs(depth="local-global-attention"))
+    """Every anchor-free depth of JAX's factory is served (local-global
+    since the local-global encoder was ported); cross-attention is no
+    anchor-free depth in either package."""
+    model = get_model("anchor-free", **_kwargs(depth="local-global-attention"))
+    assert type(model).__name__ == "DSNetAFMultiAttention"
     with pytest.raises(ValueError, match="Invalid model depth"):
         get_model("anchor-free", **_kwargs(depth="cross-attention"))
     with pytest.raises(ValueError, match="Invalid model depth"):

@@ -141,8 +141,8 @@ def test_evaluate_cli_reads_jax_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--context-parallel", "2"], ["--tensor-parallel", "2"],
     ["--num-devices", "2"], ["--host-eval"], ["--knapsack-audit"],
-    ["--matmul-precision", "bfloat16"], ["--model-depth", "deep"],
-    ["--pooling-type", "fft"]])
+    ["--matmul-precision", "bfloat16"], ["--model-depth", "cross-attention"],
+    ["--model-depth", "cross-attention", "--encoder-type", "local-global"]])
 def test_unserved_flags_raise(flags):
     args = port_evaluate.config_lib.get_arguments(
         ["anchor-based", "--device", "cpu", *flags])

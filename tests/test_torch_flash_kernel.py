@@ -69,6 +69,65 @@ def test_kernel_matches_twin_on_card(cuda_device, bh, n, d, lens, precision):
                                rtol=0, atol=tol, msg="m + log l")
 
 
+def _assert_forward_close(got, want, precision):
+    """out, m and l within 1e-4 at "highest"; out and m + log l within 2^-8
+    at "default" (the pair through the log normaliser it defines)."""
+    if precision == "highest":
+        for name, g, w in zip(("out", "m", "l"), got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+        return
+    tol = TOL["default"]
+    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol,
+                               msg="out")
+    torch.testing.assert_close(got[1] + got[2].log(), want[1] + want[2].log(),
+                               rtol=0, atol=tol, msg="m + log l")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("bh,n,n_pad,lens", [
+    (3, 192, 192, [192, 150, 0]),     # a fully-masked row
+    (2, 100, 128, [100, 61]),         # N not a multiple of 64: pad keys
+    (4, 2100, 2112, [2100, 1700, 530, 0])])
+def test_head_dim_512_matches_twin_on_card(cuda_device, bh, n, n_pad, lens,
+                                           precision):
+    """Head dim 512, the local attentions of the local-global heads at
+    F 1024 (2 heads): a kernel of its own, O's columns split over two
+    blocks, m and l written by the first."""
+    rng = np.random.RandomState(bh + n)
+    q, k, v = (rng.randn(bh, n_pad, 512).astype(np.float32)
+               for _ in range(3))
+    mask = _mask_levels(bh, n, lens, n_pad)
+    args = [torch.from_numpy(t).to(cuda_device) for t in (q, k, v, mask)]
+    before = flash.flash_attention_fwd.launches_by_head_dim.get(512, 0)
+    got = flash.flash_attention_fwd(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_fwd.launches_by_head_dim[512] == before + 1
+    _assert_forward_close(got, flash.flash_attention_plain(*args), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_head_dim_512_carries_nan_like_twin_on_card(cuda_device, precision):
+    """A NaN made on the card in q, in k, and in v's second column slice
+    (the other block's), one head each, the last head clean."""
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(4, 128, 512).astype(np.float32))
+               .to(cuda_device) for _ in range(3))
+    mask = torch.from_numpy(_mask_levels(4, 128, [128, 90, 128, 128],
+                                         128)).to(cuda_device)
+    nan = torch.zeros((), device=cuda_device) / 0
+    q[0, 5, 3], k[1, 9, 300], v[2, 7, 400] = nan, -nan, nan
+    got = flash.flash_attention_fwd(q, k, v, mask, precision=precision)
+    want = flash.flash_attention_plain(q, k, v, mask)
+    for name, a, w in (("out", got[0], want[0]),
+                       ("m + log l", got[1] + got[2].log(),
+                        want[1] + want[2].log())):
+        assert bool(w[:3].isnan().any()) or name != "out", name
+        assert torch.equal(a.isnan(), w.isnan()), name
+        assert bool(a[3].isfinite().all()), name
+
+
 def _backward_inputs(device, bh, n, d, lens, seed):
     rng = np.random.RandomState(seed)
     q, k, v, g = (torch.from_numpy(rng.randn(bh, n, d).astype(np.float32))
@@ -184,9 +243,11 @@ def test_kernel_rejects_bad_shapes(cuda_device):
     rows = torch.zeros(2, 64, 1, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_attention_dq(q, q, q, mask[:, :64], q, rows, rows, rows)
-    q = torch.zeros(2, 64, 256, device=cuda_device)   # forward only
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows, rows)
+    for d in (256, 512):                                # forward only
+        q = torch.zeros(2, 64, d, device=cuda_device)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows,
+                                      rows)
     q = torch.zeros(2, 64, 64, device=cuda_device)
     with pytest.raises(ValueError, match="dd must be"):
         flash.flash_attention_dkv(q, q, q, mask[:, :64], q, rows, rows,

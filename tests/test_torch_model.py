@@ -149,12 +149,13 @@ def test_dsnet_padded_equals_unpadded(n_real):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        get_model("anchor-based", **{**SMALL, "pooling_type": "dwt"})
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        get_model("anchor-based", **{**SMALL, "pooling_type": "fft"})
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        get_model("anchor-based", model_depth="deep", **SMALL)
+    """Only the motion head (cross-attention) is left unported; a window
+    pooling at more than one anchor scale is refused, as JAX asserts."""
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        get_model("anchor-free", **{**SMALL,
-                                    "model_depth": "local-global-attention"})
+        get_model("anchor-based", model_depth="cross-attention", **SMALL)
+    for pooling in ("dwt", "fft", "flat-pooling"):
+        with pytest.raises(ValueError, match="single scale"):
+            get_model("anchor-based", **{**SMALL, "pooling_type": pooling})
+    with pytest.raises(ValueError, match="Invalid pooling type"):
+        get_model("anchor-based", **{**SMALL, "anchor_scales": [4],
+                                     "pooling_type": "avg"})

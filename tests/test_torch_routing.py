@@ -20,7 +20,7 @@ from edsnet_torch.models.attention import AttentionExtractor, flash_route
 
 @pytest.mark.parametrize("head_dim,want", [
     (16, None), (32, "highest"), (64, "highest"), (128, "highest"),
-    (256, "highest")])
+    (256, "highest"), (512, "highest"), (1024, None)])
 def test_auto_route_on_cuda_takes_kernel_head_dims_only(head_dim, want):
     assert flash_route(True, False, 2304, head_dim, None) == want
 
@@ -46,12 +46,20 @@ def test_use_pallas_route_precision_and_no_pallas():
 @pytest.mark.parametrize("head_dim", [16, 48])
 def test_use_pallas_with_unsupported_head_dim_raises_on_cuda(head_dim):
     with pytest.raises(ValueError, match=rf"head dim {head_dim} not in "
-                                         rf"HEAD_DIMS \(32, 64, 128, 256\)"):
+                                         rf"HEAD_DIMS \(32, 64, 128, 256, "
+                                         rf"512\)"):
         flash_route(True, False, 2304, head_dim, True)
 
 
+def test_use_pallas_takes_head_dim_512_on_cuda():
+    """The local attentions of the local-global heads at F 1024 (2 heads):
+    --use-pallas used to raise there, where JAX runs its kernel."""
+    assert flash_route(True, False, 576, 512, True) == "default"
+    assert flash_route(True, False, 576, 512, None) == "highest"
+
+
 def test_route_follows_the_kernels_head_dims():
-    assert flash.HEAD_DIMS == (32, 64, 128, 256)
+    assert flash.HEAD_DIMS == (32, 64, 128, 256, 512)
     assert flash.BWD_HEAD_DIMS == (32, 64, 128)
     for d in flash.HEAD_DIMS:
         assert flash_route(True, False, 64, d, None) == "highest"

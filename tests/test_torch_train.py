@@ -148,19 +148,21 @@ def test_dropout_follows_its_generator():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model-depth", "deep"], ["--pooling-type", "flat-pooling"],
+    ["--model-depth", "cross-attention"], ["--matmul-precision", "bfloat16"],
     ["--resume"], ["--state-save-every", "5"], ["--profile"],
-    ["--host-eval"], ["--model-depth", "original"],
+    ["--host-eval"], ["--num-devices", "2"],
     ["--tensor-parallel", "2"]])
 def test_train_flags_not_served_raise(flags):
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_evaluate.setup(args, port_evaluate.check_train_supported)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 10"):
-        port_evaluate.check_train_supported(get_arguments(
-            ["anchor-free", "--device", "cpu", "--model-depth",
-             "local-global-attention"]))
+    # every other depth and pooling is served, on either head
+    for extra in (["--model-depth", "deep"], ["--model-depth", "original"],
+                  ["--model-depth", "local-global-attention"],
+                  ["--pooling-type", "flat-pooling"]):
+        for model in ("anchor-based", "anchor-free"):
+            port_evaluate.check_train_supported(get_arguments(
+                [model, "--device", "cpu", *extra]))
 
 
 def test_each_cli_rejects_only_its_own_flags():

@@ -191,9 +191,9 @@ def test_skipped_videos_and_nan():
     assert [it.key for it in af_items] == [good["key"]]
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md Queue A item 10"):
-        get_model("anchor-free", base_model="linear", num_feature=16,
-                  num_hidden=8, num_head=2, fc_depth=1,
-                  model_depth="local-global-attention")
+        get_model("anchor-based", base_model="linear", num_feature=16,
+                  num_hidden=8, num_head=2, fc_depth=1, anchor_scales=[4],
+                  pooling_type="roi", model_depth="cross-attention")
 
 
 def test_batches_and_pools_match_jax():
