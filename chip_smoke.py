@@ -5,15 +5,18 @@
 Phases, each of which must pass (exit code 1 otherwise):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from the sources in this checkout,
-   one nvcc per source, all started together; ptxas must report no spills
-   for any kernel instance (registers and spills are printed);
+   and the yardsticks of tools/flash_fwd_yardsticks.cu, one nvcc per
+   source, all started together; ptxas must report no spills for any
+   kernel instance (registers and spills are printed);
 3. each kernel against its plain PyTorch twin on the card, at small shapes
    (every head dim the kernels take) and at the main path's largest shape;
-   the forward also at head dim 256, the deep anchor-free model's first
-   attention at F 1024 (small, and that path's (16, 2304, 256)), and at
-   head dim 512, its own kernel, the local-global heads' local attentions
-   (a fully-masked row, N not a multiple of 64, that path's (8, 576, 512),
-   and a NaN made on the card in q, k and v).
+   the forward also at head dims 256 and 512, flash_fwd_cluster_kernel (a
+   cluster of two blocks per q tile, one per half of the head dim): 256
+   for the deep anchor-free model's first attention at F 1024 (small, and
+   that path's (16, 2304, 256)), 512 for the local-global heads' local
+   attentions (a fully-masked row, N not a multiple of 64, that path's
+   (8, 576, 512), 231 clusters, an odd count), and at both a NaN made on
+   the card in q, k and v.
    All three kernels run on the TF32 tensor cores at both precisions:
    "highest" (3 TF32 passes) within 1e-4 (out and m abs, l, a sum of up
    to N terms, relative), "default" (1 pass) within 2^-8, 8 unit
@@ -54,10 +57,15 @@ Phases, each of which must pass (exit code 1 otherwise):
    limit: predict per batch, the whole evaluation, a train step per bucket
    and its stages, an epoch, and each kernel against its bound, its twin
    and the library call that computes the same function, at both
-   precisions.  A kernel's bound is the larger of its bytes over 3.35 TB/s
-   and its operations times the TF32 passes (3 at "highest", 1 at
-   "default") over the 495 TFLOP/s dense TF32 rate; the f32 bound (67
-   TFLOP/s) is printed beside it.
+   precisions; the cluster kernel at (8, 2304, 512), (8, 576, 512) and
+   (16, 2304, 256) in turns with the kernels it replaced (previous,
+   kernel, kernel, previous), which are first checked against the twin.
+   A kernel's bound is the larger of its bytes over 3.35 TB/s and its
+   operations times the TF32 passes (3 at "highest", 1 at "default") over
+   the 495 TFLOP/s dense TF32 rate; the f32 bound (67 TFLOP/s) is printed
+   beside it.  Then the forward kernels' registers, shared bytes, blocks
+   per SM and resident clusters, and the card's own rate of register-only
+   mma.sync.m16n8k8 TF32 products.
 8. the headline path at full width: anchor-based DSNet, nystromformer,
    ROI pooling, anchor scale 12, F 1024, 8 heads, hidden 128, fc depth 7
    (2,248,843 parameters), seeded random weights, the same 8 videos:
@@ -101,8 +109,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    parameters equal the plain step's bit for bit, no kernel launched;
    attention deep and original predicting over the eval batches (forward
    launches per batch: two on deep, base_model1 at head dim 256 and
-   base_model2 at 128, one on original; pred_cls within 1e-4 of the dense
-   route) with one step per bucket; predict, NMS and step times;
+   base_model2 at 128, one on original, counted by head dim; pred_cls
+   within 1e-4 of the dense route) with one step per bucket; predict, NMS
+   and step times;
 12. the paper's poolings and the other attention heads at full width:
    anchor-based original, deep (--attention-depth 2) and local-global and
    anchor-free local-global on attention (JAX's parameter counts; the 8
@@ -122,22 +131,25 @@ Phases, each of which must pass (exit code 1 otherwise):
 
 The last lines are a JSON object describing each kernel (``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
-evaluate paths, for the forward its head-dim-256 readings, and the
-head-dim-512 instance as an entry of its own with its launches on phase
-12's anchor-based local-global evaluation), the nvidia-smi line, and
-{"ok": true, "device": {...}}.  Without a CUDA card,
-or without the rest of the repository beside this file, it exits non-zero
-before printing a result.
+evaluate paths, and flash_fwd_cluster_kernel as two entries: head dim 512
+at (8, 576, 512) with its launches on phase 12's anchor-based
+local-global evaluation, and head dim 256 at (16, 2304, 256) with its
+launches on phase 11's anchor-free deep predict, each with the replaced
+kernel's time), the nvidia-smi line, and {"ok": true, "device": {...}}.
+Without a CUDA card, or without the rest of the repository beside this
+file, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
@@ -150,6 +162,10 @@ F32_PEAK_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 TF32_PEAK_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# the superseded wide-head forward kernels and the TF32 rate loop, timed
+# beside the port's kernels (never launched by the port)
+YARDSTICKS = str(Path(__file__).resolve().parent / "tools"
+                 / "flash_fwd_yardsticks.cu")
 
 
 def nvidia_smi() -> str:
@@ -241,16 +257,18 @@ FLASH_CASES = [(4, 192, 64, [150, 150, 100, 100]),
 # base_model1 at F 1024 (4 heads) on a bucket-2304 eval batch of 4 rows,
 # with row lengths up to the longest synthetic video's 2100
 DEEP_LENS = [2100] * 4 + [1902] * 4 + [1700] * 4 + [1500] * 4
-# head dim 512 is a kernel of its own (O's columns split over two blocks):
-# the local attentions of the local-global heads at F 1024 (2 heads), at
-# bucket 2304 on a buffer of 576 positions, a segment of ceil(n / 4) of
-# each row real
+# head dim 512: the local attentions of the local-global heads at F 1024
+# (2 heads), at bucket 2304 on a buffer of 576 positions, a segment of
+# ceil(n / 4) of each row real.  Head dims 256 and 512 run
+# flash_fwd_cluster_kernel (two blocks per q tile, one per half of the head
+# dim); 7 x 2112 / 64 = 231 clusters is an odd count, with an odd last wave
 LOCAL_LENS = [525] * 2 + [476] * 2 + [425] * 2 + [375] * 2
 FWD_CASES = FLASH_CASES + [(4, 192, 256, [192, 150, 100, 0]),
                            (16, 2304, 256, DEEP_LENS),
                            (4, 192, 512, [192, 150, 100, 0]),
                            (2, 100, 512, [100, 61]),
-                           (8, 576, 512, LOCAL_LENS)]
+                           (8, 576, 512, LOCAL_LENS),
+                           (7, 2112, 512, [2100, 1700, 530, 0, 2112, 64, 1])]
 
 
 def emulated_errors(emulate, want) -> str:
@@ -310,27 +328,30 @@ def check_flash(flash, phases: Phases) -> Dict[str, Dict[int, float]]:
 
 
 def check_flash_nan(flash, phases: Phases) -> None:
-    """Head dim 512 with a NaN made on the card (0 / 0) in q, in k, and in
-    v's second column slice (the other block's), one head each, the last
-    head clean: at both precisions NaN exactly where the twin gives NaN,
-    and the clean head finite."""
-    q, k, v, mask = flash_case(flash, 4, 128, 512, [128, 90, 128, 128],
-                               seed=31)
-    nan = torch.zeros((), device=q.device) / 0
-    q[0, 5, 3], k[1, 9, 300], v[2, 7, 400] = nan, -nan, nan
-    want = flash.flash_attention_plain(q, k, v, mask)
-    for precision in TOLS:
-        got = flash.flash_attention_fwd(q, k, v, mask, precision=precision)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a.isnan(), w.isnan()) for a, w in
-                   ((got[0], want[0]),
-                    (got[1] + got[2].log(), want[1] + want[2].log())))
-        clean = bool(got[0][3].isfinite().all())
-        phases.check(same and clean and bool(want[0][:3].isnan().any()),
-                     f"flash {precision} head dim 512: NaN made on the card "
-                     f"in q, k and v carried where the twin carries it "
-                     f"({int(got[0].isnan().sum())} NaN outputs), the clean "
-                     f"head finite")
+    """Head dims 512 and 256 (the cluster kernel) with a NaN made on the
+    card (0 / 0) in q's first half, in k's second half (the other block's
+    partial of S) and in v's second half (the other block's columns of O),
+    one head each, the last head clean: at both precisions NaN exactly
+    where the twin gives NaN, and the clean head finite."""
+    for d, k_col, v_col in ((512, 300, 400), (256, 172, 144)):
+        q, k, v, mask = flash_case(flash, 4, 128, d, [128, 90, 128, 128],
+                                   seed=31)
+        nan = torch.zeros((), device=q.device) / 0
+        q[0, 5, 3], k[1, 9, k_col], v[2, 7, v_col] = nan, -nan, nan
+        want = flash.flash_attention_plain(q, k, v, mask)
+        for precision in TOLS:
+            got = flash.flash_attention_fwd(q, k, v, mask,
+                                            precision=precision)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a.isnan(), w.isnan()) for a, w in
+                       ((got[0], want[0]),
+                        (got[1] + got[2].log(), want[1] + want[2].log())))
+            clean = bool(got[0][3].isfinite().all())
+            phases.check(same and clean and bool(want[0][:3].isnan().any()),
+                         f"flash {precision} head dim {d}: NaN made on the "
+                         f"card in q, k and v carried where the twin carries "
+                         f"it ({int(got[0].isnan().sum())} NaN outputs), the "
+                         f"clean head finite")
 
 
 def grad_limit_ok(got: torch.Tensor, want: torch.Tensor, tol: float = TOL
@@ -689,34 +710,138 @@ def time_training(phases: Phases, train_videos, val_videos, args,
 
 
 def time_kernel(flash, name, shape, n_ops, n_mats, n_rows, call, plain,
-                library, lib_name, smi: str) -> dict:
+                library, lib_name, smi: str, previous=None,
+                iters: int = 20) -> dict:
     """One kernel at ``shape`` (BH, N, D) at each precision beside its
     bound, its twin and the library call (CUDA events).  The bound: its
     operations (``n_ops`` BH N^2 D) times the TF32 passes over the TF32
     rate, or its bytes (``n_mats`` [N, D] and ``n_rows`` [N] f32 tensors
-    per BH, each read or written once) over the memory rate, the
-    larger."""
+    per BH, each read or written once) over the memory rate, the larger.
+    With ``previous`` (the kernel it replaced, called as ``call``), the
+    two are timed in turns, previous, kernel, kernel, previous, and each
+    reads the mean of its two turns."""
     bh, n, d = shape
     ops = n_ops * bh * n * n * d
     io_ms = 4.0 * bh * (n_mats * n * d + n_rows * n) / HBM_BYTES_PER_S * 1e3
     f32_ms = ops / F32_PEAK_FLOPS * 1e3
-    t = {"plain_ms": cuda_ms(plain, iters=5), "library_ms": cuda_ms(library),
+    t = {"plain_ms": cuda_ms(plain, iters=5),
+         "library_ms": cuda_ms(library, iters=iters),
          "f32_bound_ms": max(f32_ms, io_ms)}
     for precision in TOLS:
         passes = flash.PASSES[precision]
         ops_ms = passes * ops / TF32_PEAK_FLOPS * 1e3
-        r = t[precision] = {
-            "ms": cuda_ms(lambda: call(precision)),
-            "bound_ms": max(ops_ms, io_ms),
-            "bound_by": "operations" if ops_ms >= io_ms else "bytes"}
+        r = t[precision] = {"bound_ms": max(ops_ms, io_ms),
+                            "bound_by": ("operations" if ops_ms >= io_ms
+                                         else "bytes")}
+        if previous is None:
+            r["ms"] = cuda_ms(lambda: call(precision), iters=iters)
+            versus = ""
+        else:
+            turns = [cuda_ms(lambda: fn(precision), iters=iters)
+                     for fn in (previous, call, call, previous)]
+            r["ms"] = (turns[1] + turns[2]) / 2
+            r["previous_ms"] = (turns[0] + turns[3]) / 2
+            r["turns_ms"] = turns
+            versus = (f" (turns previous, kernel, kernel, previous: "
+                      f"{', '.join(f'{x:.4f}' for x in turns)}; previous "
+                      f"{r['previous_ms']:.4f} ms, "
+                      f"{r['previous_ms'] / r['ms']:.2f}x)")
         print(f"  [{smi}] {name} {shape} {precision}: kernel "
-              f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.2f} TFLOP/s), "
+              f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.2f} TFLOP/s){versus}, "
               f"twin {t['plain_ms']:.4f} ms, {lib_name} "
               f"{t['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"(operations {ops_ms:.4f} ms at {passes} x {ops:.4g} on 495 "
               f"TFLOP/s TF32, bytes {io_ms:.4f} ms at 3.35 TB/s; f32 bound "
               f"{t['f32_bound_ms']:.4f} ms at 67 TFLOP/s)")
     return t
+
+
+def previous_forward(flash, build):
+    """The wide-head forward kernels that flash_fwd_cluster_kernel
+    replaced (tools/flash_fwd_yardsticks.cu), as a call like
+    flash_attention_fwd's: (q, k, v, mask, precision) -> (out, m, l)."""
+    fn = build.load(YARDSTICKS).edsnet_flash_attention_fwd_previous
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, mask, precision):
+        bh, n, d = q.shape
+        out = torch.empty_like(q)
+        m = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        err = fn(*(x.data_ptr() for x in (q, k, v, mask, out, m, l)), bh, n,
+                 d, flash.PASSES[precision], d ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"previous forward launch failed: cudaError "
+                               f"{err}")
+        return out, m, l
+    return call
+
+
+def kernel_occupancy(build, smi: str) -> Dict[str, list]:
+    """Registers, shared bytes, blocks per SM and resident clusters of the
+    forward kernel of each head dim, and of the superseded wide-head
+    kernels, at both pass counts (cudaFuncGetAttributes and the occupancy
+    queries of the CUDA runtime)."""
+    out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, lib, symbol, dims in (
+            ("flash_attention_fwd", "flash_attention_fwd",
+             "edsnet_flash_attention_fwd_occupancy", (128, 256, 512)),
+            ("previous", YARDSTICKS,
+             "edsnet_flash_attention_fwd_previous_occupancy", (256, 512))):
+        fn = getattr(build.load(lib), symbol)
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for d in dims:
+            for passes in (3, 1):
+                info = (ctypes.c_int * 4)()
+                err = fn(d, passes, ctypes.cast(info, ctypes.c_void_p))
+                if err != 0:
+                    raise RuntimeError(f"{symbol}({d}, {passes}): cudaError "
+                                       f"{err}")
+                regs, shared, per_sm, clusters = list(info)
+                out[f"{label} d{d} p{passes}"] = list(info)
+                print(f"  [{smi}] {label} head dim {d}, {passes} pass(es): "
+                      f"{regs} registers, {shared} shared bytes a block, "
+                      f"{per_sm} block(s) per SM"
+                      + (f", {clusters} clusters of 2 resident "
+                         f"({clusters / sms:.2f} per SM)" if clusters else ""))
+    return out
+
+
+def tf32_mma_rate(build, smi: str) -> float:
+    """The card's own rate of mma.sync.m16n8k8 TF32 products on registers
+    (tools/flash_fwd_yardsticks.cu: 4 blocks of 8 warps per SM, 8
+    independent accumulators a warp), TFLOP/s in CUDA events."""
+    fn = build.load(YARDSTICKS).edsnet_tf32_mma_rate
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 1024
+    out = torch.empty(blocks * 256, device="cuda")
+
+    def run():
+        err = fn(out.data_ptr(), blocks, iters,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"tf32_mma_rate launch failed: cudaError {err}")
+    ms = cuda_ms(run, iters=5, warmup=2)
+    flops = blocks * 8 * iters * 8 * 2 * 16 * 8 * 8
+    tflops = flops / (ms * 1e-3) / 1e12
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"  [{smi}] mma.sync.m16n8k8 TF32 on registers: {tflops:.1f} "
+          f"TFLOP/s ({100 * tflops * 1e12 / TF32_PEAK_FLOPS:.1f} % of the "
+          f"495 dense peak; {ms:.3f} ms for {flops:.4g} operations, "
+          f"finite {bool(torch.isfinite(out).all())}; sm clock, max, power "
+          f"after: {clocks})")
+    return tflops
 
 
 def sdpa_backend(q, k, v, attn_mask) -> str:
@@ -732,13 +857,21 @@ def sdpa_backend(q, k, v, attn_mask) -> str:
         return f"not measured ({type(err).__name__})"
 
 
-def time_kernels(flash, smi: str) -> Dict[str, dict]:
+# the wide head dims that flash_fwd_cluster_kernel takes, timed against the
+# kernels it replaced: (8, 2304, 512) and (16, 2304, 256) do the operations
+# of (32, 2304, 128); (8, 576, 512) is the local-global heads' own shape
+WIDE_SHAPES = {"head dim 512": (8, 2304, 512, [2304] * 8, 7),
+               "head dim 512 local": (8, 576, 512, LOCAL_LENS, 6),
+               "head dim 256": (16, 2304, 256, DEEP_LENS, 8)}
+
+
+def time_kernels(flash, build, phases: Phases, smi: str) -> Dict[str, dict]:
     """Each kernel at (BH, N, D) = (32, 2304, 128), the main path's largest
-    shape, and the forward also at (16, 2304, 256), the deep anchor-free
-    path's base_model1, and at (8, 2304, 512), the head dim of the
-    local-global heads' local attentions (the same operations and bytes),
-    each at both precisions beside its bound, its twin and the library
-    call that computes the same function (CUDA events)."""
+    shape, and the forward at WIDE_SHAPES (flash_fwd_cluster_kernel) in
+    turns with the kernels it replaced, each at both precisions beside its
+    bound, its twin and the library call that computes the same function
+    (CUDA events); then the kernels' occupancy and the card's own
+    mma.sync TF32 rate."""
     q, k, v, mask = flash_case(flash, 32, 2304, 128, [2304] * 32, seed=9)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
                     ).cuda()
@@ -749,10 +882,6 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
     lq, lk, lv = (t[None].clone().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=attn_mask)
-    q2, k2, v2, mask2 = flash_case(flash, 16, 2304, 256, DEEP_LENS, seed=8)
-    mask2_lib = (mask2 > 0)[None, :, None, :]
-    q5, k5, v5, mask5 = flash_case(flash, 8, 2304, 512, [2304] * 8, seed=7)
-    mask5_lib = (mask5 > 0)[None, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # per kernel: its shape, operations per BH*N^2*D, [N, D] and [N]
     # tensors read or written once, the call at a precision, its twin and
@@ -774,28 +903,40 @@ def time_kernels(flash, smi: str) -> Dict[str, dict]:
          lambda: flash.flash_attention_dkv_plain(*bwd_args),
          lambda: torch.autograd.grad(lib_out, (lk, lv), g[None],
                                      retain_graph=True),
-         "autograd.grad of k, v through scaled_dot_product_attention"),
-        ("flash_attention_fwd head dim 256", tuple(q2.shape), 4, 4, 3,
-         lambda p: flash.flash_attention_fwd(q2, k2, v2, mask2, precision=p),
-         lambda: flash.flash_attention_plain(q2, k2, v2, mask2),
-         lambda: sdpa(q2[None], k2[None], v2[None], attn_mask=mask2_lib),
-         "scaled_dot_product_attention"),
-        ("flash_attention_fwd head dim 512", tuple(q5.shape), 4, 4, 3,
-         lambda p: flash.flash_attention_fwd(q5, k5, v5, mask5, precision=p),
-         lambda: flash.flash_attention_plain(q5, k5, v5, mask5),
-         lambda: sdpa(q5[None], k5[None], v5[None], attn_mask=mask5_lib),
-         "scaled_dot_product_attention"))
+         "autograd.grad of k, v through scaled_dot_product_attention"))
     timing = {row[0]: time_kernel(flash, *row, smi=smi) for row in rows}
-    for name, args in (("flash_attention_fwd", (q, k, v, attn_mask)),
-                       ("flash_attention_fwd head dim 256",
-                        (q2, k2, v2, mask2_lib)),
-                       ("flash_attention_fwd head dim 512",
-                        (q5, k5, v5, mask5_lib))):
-        a, b, c, m = args
-        timing[name]["library_backend"] = sdpa_backend(a[None], b[None],
-                                                       c[None], m)
-        print(f"  [{smi}] {name}: scaled_dot_product_attention took the "
-              f"{timing[name]['library_backend']} backend")
+    timing["flash_attention_fwd"]["library_backend"] = sdpa_backend(
+        q[None], k[None], v[None], attn_mask)
+
+    previous = previous_forward(flash, build)
+    for label, (bh, n, d, lens, seed) in WIDE_SHAPES.items():
+        args = flash_case(flash, bh, n, d, lens, seed=seed)
+        lib_mask = (args[3] > 0)[None, :, None, :]
+        want = flash.flash_attention_plain(*args)
+        for precision, tol in TOLS.items():   # the yardstick is the right one
+            errs = forward_errors(previous(*args, precision), want)
+            key = "out" if precision == "highest" else "m + log l"
+            phases.check(errs["out"] <= tol and errs[key] <= tol,
+                         f"previous {label} {precision}: out {errs['out']:.3e}"
+                         f", {key} {errs[key]:.3e} within {tol:g} of the twin")
+        name = f"flash_attention_fwd {label}"
+        timing[name] = time_kernel(
+            flash, name, (bh, n, d), 4, 4, 3,
+            lambda p, a=args: flash.flash_attention_fwd(*a, precision=p),
+            lambda a=args: flash.flash_attention_plain(*a),
+            lambda a=args, lm=lib_mask: sdpa(a[0][None], a[1][None],
+                                             a[2][None], attn_mask=lm),
+            "scaled_dot_product_attention", smi=smi,
+            previous=lambda p, a=args: previous(*a, p),
+            iters=100 if n < 1024 else 20)
+        timing[name]["library_backend"] = sdpa_backend(
+            args[0][None], args[1][None], args[2][None], lib_mask)
+    for name, t in timing.items():
+        if "library_backend" in t:
+            print(f"  [{smi}] {name}: scaled_dot_product_attention took the "
+                  f"{t['library_backend']} backend")
+    timing["occupancy"] = kernel_occupancy(build, smi)
+    timing["tf32_mma_tflops"] = tf32_mma_rate(build, smi)
     return timing
 
 
@@ -1434,16 +1575,21 @@ def check_anchor_free(flash, phases: Phases, records, train_videos,
                  f"{counts}")
 
     # attention, deep and original: per eval batch, deep launches the
-    # forward for base_model1 (4 heads, head dim 256) and base_model2 (8
-    # heads, 128), original for its one backbone
+    # forward for base_model1 (4 heads, head dim 256: the cluster kernel)
+    # and base_model2 (8 heads, 128), original for its one backbone
     depth_ms = {}
-    for depth, per_batch in (("deep", 2), ("original", 1)):
+    for depth, dims in (("deep", (256, 128)), ("original", (128,))):
+        per_batch = len(dims)
         d_args = af_args("attention", depth)
         d_model = built(d_args)
         reset_launches(flash)
         got = predict_all(d_model)
         counts = launch_counts(flash)
-        launched[depth] = counts
+        by_dim = dict(flash.flash_attention_fwd.launches_by_head_dim)
+        launched[depth] = {**counts, "by_head_dim": by_dim}
+        phases.check(by_dim == {d: len(prepared) for d in dims},
+                     f"anchor-free attention {depth} predict: forward "
+                     f"launches by head dim {by_dim}")
         err = cls_gap(got, predict_all(dense_twin(d_args, d_model)))
         finite = all(bool(torch.isfinite(c[e["tb"]["mask"]]).all()
                           and ((c >= 0) & (c <= 1)).all())
@@ -1811,9 +1957,9 @@ def main() -> int:
 
     print("phase: build")
     t0 = time.perf_counter()
-    reports = build.build(*KERNEL_SOURCES)
-    print(f"  built {len(KERNEL_SOURCES)} kernel source(s) in "
-          f"{time.perf_counter() - t0:.2f} s")
+    reports = build.build(*KERNEL_SOURCES, YARDSTICKS)
+    print(f"  built {len(KERNEL_SOURCES)} kernel source(s) and the "
+          f"yardsticks in {time.perf_counter() - t0:.2f} s")
     for name, log in reports.items():
         for kernel, spills, regs in ptxas_summary(log):
             print(f"    {name}: {kernel}: {regs} registers, {spills}")
@@ -1914,7 +2060,7 @@ def main() -> int:
 
     print("phase: timing")
     time_training(phases, train_videos, val_videos, train_args, smi)
-    timing = time_kernels(flash, smi)
+    timing = time_kernels(flash, build, phases, smi)
     print(f"  [{smi}] predict ms per batch "
           f"{[round(t, 3) for t in predict_ms]} (bucket lengths "
           f"{[int(e['tb']['seq'].shape[1]) for e in prepared]}); eval of "
@@ -1942,8 +2088,8 @@ def main() -> int:
     kernels = []
     for name, source, line, used, err, err_default in (
             ("flash_attention_fwd", "flash_attention_fwd.cu", 58, launches,
-             max(fwd_err["highest"].values()),
-             max(fwd_err["default"].values())),
+             *(max(e for d, e in fwd_err[p].items() if d <= 128)
+               for p in ("highest", "default"))),
             ("flash_attention_dq", "flash_attention_bwd.cu", 155,
              bwd_launches["flash_attention_dq"], dq_err["highest"],
              dq_err["default"]),
@@ -1964,41 +2110,58 @@ def main() -> int:
                 path: counts[name] for path, counts in af_launches.items()},
             "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
                         "bound_ms": t["default"]["bound_ms"]}}
-        if name == "flash_attention_fwd":   # deep anchor-free's base_model1
-            t = timing["flash_attention_fwd head dim 256"]
-            entry["head_dim_256"] = {
-                "shape": [16, 2304, 256],
-                "max_abs_err": fwd_err["highest"][256],
-                "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
+        kernels.append(entry)
+    # flash_fwd_cluster_kernel, the forward at head dims 512 and 256, each
+    # at its path's shape with its launches there (phase 12's anchor-based
+    # local-global evaluation, phase 11's anchor-free deep predict over the
+    # eval batches), timed in turns with the kernel it replaced
+    lg = head_launches[f"anchor-based attention {LG}"]["by_head_dim"]
+    for d, label, used, by_path, extra in (
+            (512, "head dim 512 local", lg.get(512, 0),
+             {path: c["by_head_dim"].get(512, 0)
+              for path, c in head_launches.items()},
+             "head dim 512"),
+            (256, "head dim 256",
+             af_launches["deep"]["by_head_dim"].get(256, 0),
+             {f"anchor-free {path}": c["by_head_dim"].get(256, 0)
+              for path, c in af_launches.items() if "by_head_dim" in c},
+             None)):
+        t = timing[f"flash_attention_fwd {label}"]
+        entry = {
+            "name": f"flash_fwd_cluster_kernel<{d // 2}> "
+                    f"(flash_attention_fwd, head dim {d})",
+            "route": "cuda",
+            "source": "edsnet_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "edsnet_tpu/kernels/flash_attention.py:58",
+            "launches": used, "max_abs_err": fwd_err["highest"][d],
+            "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["highest"]["bound_ms"],
+            "bound_by": t["highest"]["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": list(WIDE_SHAPES[label][:3]),
+            "previous_ms": t["highest"]["previous_ms"],
+            "library_backend": t["library_backend"],
+            "launches_by_path": by_path,
+            "occupancy_p3":
+                timing["occupancy"][f"flash_attention_fwd d{d} p3"],
+            "default": {"ms": t["default"]["ms"],
+                        "previous_ms": t["default"]["previous_ms"],
+                        "max_abs_err": fwd_err["default"][d],
+                        "bound_ms": t["default"]["bound_ms"],
+                        "bound_by": t["default"]["bound_by"]}}
+        if extra:
+            t = timing[f"flash_attention_fwd {extra}"]
+            entry["at_2304"] = {
+                "shape": [8, 2304, 512], "ms": t["highest"]["ms"],
+                "previous_ms": t["highest"]["previous_ms"],
+                "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
                 "bound_ms": t["highest"]["bound_ms"],
-                "bound_by": t["highest"]["bound_by"],
-                "library_ms": t["library_ms"],
                 "default": {"ms": t["default"]["ms"],
-                            "max_abs_err": fwd_err["default"][256],
+                            "previous_ms": t["default"]["previous_ms"],
                             "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
-    # the head-dim-512 instance, a kernel of its own: its launches on the
-    # anchor-based local-global evaluate path of phase 12
-    t = timing["flash_attention_fwd head dim 512"]
-    kernels.append({
-        "name": "flash_attention_fwd head dim 512", "route": "cuda",
-        "source": "edsnet_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "edsnet_tpu/kernels/flash_attention.py:58",
-        "launches": head_launches[f"anchor-based attention {LG}"][
-            "by_head_dim"].get(512, 0),
-        "max_abs_err": fwd_err["highest"][512],
-        "ms": t["highest"]["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["highest"]["bound_ms"],
-        "bound_by": t["highest"]["bound_by"],
-        "library_ms": t["library_ms"], "shape": [8, 2304, 512],
-        "library_backend": t["library_backend"],
-        "launches_by_path": {
-            path: c["by_head_dim"].get(512, 0)
-            for path, c in head_launches.items()},
-        "default": {"ms": t["default"]["ms"],
-                    "max_abs_err": fwd_err["default"][512],
-                    "bound_ms": t["default"]["bound_ms"]}})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels,
+                      "tf32_mma_tflops": timing["tf32_mma_tflops"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` becomes ``kernels/_build/lib<name>-<hash>.so`` (a
 plain C interface, no PyTorch headers), keyed by the content of the source
 and of the ``csrc/*.cuh`` headers, so an edited source or header rebuilds.
-The build runs at first use; ``build(*names)`` starts one nvcc per missing
-library, all at once, and waits for them.
+A source outside ``csrc/`` is named by its path (``tools/x.cu``); it is
+compiled with ``csrc/`` on the include path and keyed by ``csrc/*.cu`` too,
+which it may include.  The build runs at first use; ``build(*names)``
+starts one nvcc per missing library, all at once, and waits for them.
 """
 from __future__ import annotations
 
@@ -36,12 +38,22 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``name`` itself where it is a .cu path."""
+    return Path(name) if name.endswith(".cu") else SRC_DIR / f"{name}.cu"
+
+
 def _lib_path(name: str) -> Path:
-    """Keyed by the source, every header in csrc/ and the flags."""
-    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes() + headers
+    """Keyed by the source, every header in csrc/ (and, for a source
+    outside csrc/, every source there) and the flags."""
+    source = _source(name)
+    deps = sorted(SRC_DIR.glob("*.cuh"))
+    if source.parent.resolve() != SRC_DIR:
+        deps += sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(source.read_bytes()
+                            + b"".join(p.read_bytes() for p in deps)
                             + " ".join(ARCH_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, str]:
@@ -57,8 +69,8 @@ def build(*names: str) -> Dict[str, str]:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(SRC_DIR),
+               "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -73,7 +85,8 @@ def build(*names: str) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    """The built library for ``csrc/<name>.cu`` (or the .cu path
+    ``name``), building it if needed."""
     if name not in _loaded:
         build(name)
         _loaded[name] = ctypes.CDLL(str(_lib_path(name)))

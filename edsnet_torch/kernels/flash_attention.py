@@ -34,9 +34,11 @@ Each kernel wrapper (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``) takes the twin only for CPU tensors (the tests); a
 CUDA tensor launches the kernel or raises.  Its ``.launches`` counts kernel
 launches; the forward's ``.launches_by_head_dim`` splits its count by head
-dim, since head dim 512 is a kernel of its own (``flash_fwd_split_kernel``:
-O's columns split over two blocks).  ``flash_attention`` is differentiable through ``_FlashAttention``,
-whose backward runs the two backward kernels.
+dim, since head dims 256 and 512 (``CLUSTER_HEAD_DIMS``) are a kernel of
+their own (``flash_fwd_cluster_kernel``: a cluster of two blocks per q
+tile, each owning half of the head dim, S summed from their partials).
+``flash_attention`` is differentiable through ``_FlashAttention``, whose
+backward runs the two backward kernels.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ import torch
 NEG = -1e30
 BLOCK = 64
 HEAD_DIMS = (32, 64, 128, 256, 512)   # the forward kernel's head dims
+CLUSTER_HEAD_DIMS = (256, 512)     # the forward's two-block cluster kernel
 BWD_HEAD_DIMS = (32, 64, 128)      # the backward kernels' (dq, dk/dv)
 PRECISIONS = ("default", "highest")
 PASSES = {"default": 1, "highest": 3}   # TF32 products per matrix product
@@ -101,9 +104,18 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int,
 def flash_attention_tf32(q, k, v, mask, passes: int,
                          toward_zero: bool = False):
     """The forward kernel's arithmetic in plain PyTorch, for the tests:
-    S = q k^T in TF32 passes, then the scale, the mask, the softmax and P v
-    in TF32 passes -> (out, m, l) as ``flash_attention_plain`` returns."""
-    s = tf32_matmul(q, k.transpose(1, 2), passes, toward_zero)
+    S = q k^T in TF32 passes (at ``CLUSTER_HEAD_DIMS`` the f32 sum of the
+    two half-head-dim products, each accumulated alone, as the cluster
+    kernel's two blocks form it), then the scale, the mask, the softmax and
+    P v in TF32 passes -> (out, m, l) as ``flash_attention_plain``
+    returns."""
+    kt = k.transpose(1, 2)
+    if q.shape[-1] in CLUSTER_HEAD_DIMS:
+        h = q.shape[-1] // 2
+        s = (tf32_matmul(q[..., :h], kt[:, :h], passes, toward_zero)
+             + tf32_matmul(q[..., h:], kt[:, h:], passes, toward_zero))
+    else:
+        s = tf32_matmul(q, kt, passes, toward_zero)
     km = mask[:, None, :]
     s = torch.where(km > 0, s * q.shape[-1] ** -0.5,
                     torch.where(km == 0, NEG, 2 * NEG))

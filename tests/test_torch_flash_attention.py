@@ -30,7 +30,10 @@ def _mask_levels(bh, n, lens, n_pad):
     dict(bh=4, n=192, d=64, lens=[150, 150, 100, 100]),  # per-video masks
     dict(bh=2, n=100, d=32, lens=[100, 100]),           # N not a 64 multiple
     dict(bh=4, n=100, d=64, lens=[100, 0, 60, 0]),      # fully-masked rows
-], ids=["unmasked", "masked", "n100", "fully_masked"])
+    # the head dims of the cluster kernel, flash_fwd_cluster_kernel
+    dict(bh=2, n=128, d=256, lens=[128, 70]),
+    dict(bh=2, n=100, d=512, lens=[100, 0]),
+], ids=["unmasked", "masked", "n100", "fully_masked", "d256", "d512"])
 def test_twin_matches_pallas_forward(case):
     bh, n, d = case["bh"], case["n"], case["d"]
     n_pad = -(-n // 64) * 64
@@ -77,3 +80,19 @@ def test_wrapper_counts_no_launch_on_cpu():
     with pytest.raises(ValueError):
         flash.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
                               precision="bf16")
+
+
+def test_build_takes_a_source_outside_csrc_by_its_path():
+    """chip_smoke.py builds tools/flash_fwd_yardsticks.cu, which includes
+    csrc/flash_attention_fwd.cu: named by its path, keyed by csrc's
+    sources too, built beside the port's libraries."""
+    from edsnet_torch.kernels import build
+    tool = build.PKG.parent / "tools" / "flash_fwd_yardsticks.cu"
+    assert build._source("flash_attention_fwd") == (
+        build.SRC_DIR / "flash_attention_fwd.cu")
+    assert build._source(str(tool)) == tool
+    lib = build._lib_path(str(tool))
+    assert lib.parent == build.BUILD_DIR
+    assert lib.name.startswith("libflash_fwd_yardsticks-")
+    assert lib != build._lib_path("flash_attention_fwd")
+    assert '#include "flash_attention_fwd.cu"' in tool.read_text()

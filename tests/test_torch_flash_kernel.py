@@ -83,17 +83,26 @@ def _assert_forward_close(got, want, precision):
                                rtol=0, atol=tol, msg="m + log l")
 
 
+# the local attentions' buffer at bucket 2304: ceil(2304 / 4) positions,
+# a segment of ceil(n / 4) real in each of 4 rows x 2 heads
+LOCAL_LENS = [525] * 2 + [476] * 2 + [425] * 2 + [375] * 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("bh,n,n_pad,lens", [
     (3, 192, 192, [192, 150, 0]),     # a fully-masked row
     (2, 100, 128, [100, 61]),         # N not a multiple of 64: pad keys
-    (4, 2100, 2112, [2100, 1700, 530, 0])])
+    (4, 2100, 2112, [2100, 1700, 530, 0]),
+    (8, 576, 576, LOCAL_LENS),        # the local-global heads' own shape
+    # 33 q tiles x 7 = 231 clusters: an odd count, and an odd last wave
+    (7, 2112, 2112, [2100, 1700, 530, 0, 2112, 64, 1])])
 def test_head_dim_512_matches_twin_on_card(cuda_device, bh, n, n_pad, lens,
                                            precision):
     """Head dim 512, the local attentions of the local-global heads at
-    F 1024 (2 heads): a kernel of its own, O's columns split over two
-    blocks, m and l written by the first."""
+    F 1024 (2 heads): flash_fwd_cluster_kernel, a cluster of two blocks
+    per q tile, each owning half of the head dim, S summed from their two
+    partials, m and l written by rank 0."""
     rng = np.random.RandomState(bh + n)
     q, k, v = (rng.randn(bh, n_pad, 512).astype(np.float32)
                for _ in range(3))
@@ -106,18 +115,17 @@ def test_head_dim_512_matches_twin_on_card(cuda_device, bh, n, n_pad, lens,
     _assert_forward_close(got, flash.flash_attention_plain(*args), precision)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["highest", "default"])
-def test_head_dim_512_carries_nan_like_twin_on_card(cuda_device, precision):
-    """A NaN made on the card in q, in k, and in v's second column slice
-    (the other block's), one head each, the last head clean."""
+def _carries_nan_like_twin(device, d, k_col, v_col, precision):
+    """A NaN made on the card in q's first half, in k's second half (the
+    other block's partial of S) and in v's second half (the other block's
+    columns of O), one head each, the last head clean."""
     rng = np.random.RandomState(12)
-    q, k, v = (torch.from_numpy(rng.randn(4, 128, 512).astype(np.float32))
-               .to(cuda_device) for _ in range(3))
+    q, k, v = (torch.from_numpy(rng.randn(4, 128, d).astype(np.float32))
+               .to(device) for _ in range(3))
     mask = torch.from_numpy(_mask_levels(4, 128, [128, 90, 128, 128],
-                                         128)).to(cuda_device)
-    nan = torch.zeros((), device=cuda_device) / 0
-    q[0, 5, 3], k[1, 9, 300], v[2, 7, 400] = nan, -nan, nan
+                                         128)).to(device)
+    nan = torch.zeros((), device=device) / 0
+    q[0, 5, 3], k[1, 9, k_col], v[2, 7, v_col] = nan, -nan, nan
     got = flash.flash_attention_fwd(q, k, v, mask, precision=precision)
     want = flash.flash_attention_plain(q, k, v, mask)
     for name, a, w in (("out", got[0], want[0]),
@@ -126,6 +134,18 @@ def test_head_dim_512_carries_nan_like_twin_on_card(cuda_device, precision):
         assert bool(w[:3].isnan().any()) or name != "out", name
         assert torch.equal(a.isnan(), w.isnan()), name
         assert bool(a[3].isfinite().all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_head_dim_512_carries_nan_like_twin_on_card(cuda_device, precision):
+    _carries_nan_like_twin(cuda_device, 512, 300, 400, precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_head_dim_256_carries_nan_like_twin_on_card(cuda_device, precision):
+    _carries_nan_like_twin(cuda_device, 256, 172, 144, precision)
 
 
 def _backward_inputs(device, bh, n, d, lens, seed):

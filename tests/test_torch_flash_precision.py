@@ -178,6 +178,34 @@ def test_emulated_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
         assert err <= limit, (name, err)
 
 
+@pytest.mark.parametrize("passes,tol", [(3, 1e-5), (1, TOL_DEFAULT)],
+                         ids=["highest", "default"])
+def test_emulated_cluster_forward_sums_half_head_dim_products(passes, tol):
+    """Head dim 256, the cluster kernel's: each block accumulates its half
+    of S = q k^T alone and S is the f32 sum of the two; the emulation forms
+    it so, and stays within the card's tolerance of the twin."""
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rng.randn(2, 128, 256).astype(np.float32))
+               for _ in range(3))
+    mask = torch.from_numpy(np.array([[1] * 128, [1] * 70 + [0] * 58],
+                                     np.int32))
+    for toward_zero in (False, True):
+        got = flash.flash_attention_tf32(q, k, v, mask, passes, toward_zero)
+        halves = [flash.tf32_matmul(q[..., c], k[..., c].transpose(1, 2),
+                                    passes, toward_zero)
+                  for c in (slice(0, 128), slice(128, 256))]
+        s = torch.where(mask[:, None, :] > 0, (halves[0] + halves[1]) / 16,
+                        flash.NEG)
+        m = s.amax(dim=-1, keepdim=True)
+        assert torch.equal(got[1], m)
+        p = torch.exp(s - m)
+        assert torch.equal(got[2], p.sum(dim=-1, keepdim=True))
+    w_out, w_m, w_l = flash.flash_attention_plain(q, k, v, mask)
+    assert float((got[0] - w_out).abs().max()) <= tol
+    assert float(((got[1] + got[2].log()) - (w_m + w_l.log())).abs().max()
+                 ) <= tol
+
+
 def test_toward_zero_accumulation_sets_three_pass_error_of_long_sums():
     """dv = P^T g over 2304 rows at 3 passes: summed as the card's mma
     steps do (rounded toward zero), the error is a bias that grows with the
