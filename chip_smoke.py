@@ -127,7 +127,26 @@ Phases, each of which must pass (exit code 1 otherwise):
    batch, a step per bucket, a bf16 step, a remat step bit-equal to the
    plain one, no kernel), with the TF32 switches off as evaluate.setup
    leaves them (the poolings' product is cuBLAS's); predict and step
-   times.
+   times;
+13. the host side at full width: the native C++ library built with g++
+   from edsnet_torch/csrc/edsnet_native.cpp into the port's build cache
+   and loaded; the host evaluator (--host-eval: predict and NMS on the
+   card, summaries on the host) on attention and on the nystromformer
+   headline, per-video F within 1e-6 of evaluate_on_device, one forward
+   launch per eval batch on attention and none on nystromformer, its time
+   split into predict+NMS and host summaries beside the device
+   evaluator's; the knapsack audit's report line over the 8 videos (in a
+   child process, stopped after AUDIT_BUDGET_S); on both heads 1 epoch
+   plus a --resume to 2 (--state-save-every 1) against 2 uninterrupted
+   epochs, parameters and best F bit for bit (else the ops torch names
+   nondeterministic, and a gap no larger than two uninterrupted runs'),
+   with the .state file's size; 2 epochs under --host-eval with the F list
+   of the device path; 2 epochs under --profile with a trace holding CUDA
+   kernel events, the top device ops and the fenced frames/s; KTS on the
+   8 videos' unit features, the card's change points equal to the native
+   float64 host route's on every video with no fallback, an unnormalised
+   kernel taking the counted float64 fallback, and ms per video on each
+   route.
 
 The last lines are a JSON object describing each kernel (``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
@@ -164,8 +183,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 # the superseded wide-head forward kernels and the TF32 rate loop, timed
 # beside the port's kernels (never launched by the port)
-YARDSTICKS = str(Path(__file__).resolve().parent / "tools"
-                 / "flash_fwd_yardsticks.cu")
+REPO = Path(__file__).resolve().parent
+YARDSTICKS = str(REPO / "tools" / "flash_fwd_yardsticks.cu")
+AUDIT_BUDGET_S = 30           # the knapsack audit's child process (phase 13)
 
 
 def nvidia_smi() -> str:
@@ -1888,6 +1908,265 @@ def check_heads_and_poolings(flash, phases: Phases, records, train_videos,
     return launched
 
 
+def _audit_worker(batches):
+    """The knapsack audit over host-side predictions, in a child process:
+    the native branch and bound can take exponential time on tied shot
+    densities, and a child can be stopped."""
+    from edsnet_torch.evaluate import KnapsackAudit, summarize_host
+
+    audit = KnapsackAudit()
+    t0 = time.perf_counter()
+    summarize_host(batches, knapsack_audit=audit)
+    return audit.n_videos, audit.report(), time.perf_counter() - t0
+
+
+def snapshot_gap(a: Dict, b: Dict) -> float:
+    """Largest parameter difference of two train-state snapshots."""
+    return max(float((a["model"][k].double() - b["model"][k].double())
+                     .abs().max()) for k in a["model"])
+
+
+def nondeterministic_ops(args, train_videos, val_videos) -> list:
+    """The ops that torch names as nondeterministic in one epoch of this
+    training path (torch.use_deterministic_algorithms, warn only)."""
+    import warnings
+
+    from edsnet_torch import trainer
+
+    one = config_args(args, max_epoch=1, resume=False, state_save_every=0)
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_records(one, train_videos, val_videos,
+                                  f"{tmp}/x.pt")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def config_args(args, **changes):
+    """A copy of parsed CLI arguments with some fields changed."""
+    out = argparse.Namespace(**vars(args))
+    for k, v in changes.items():
+        setattr(out, k, v)
+    return out
+
+
+def check_host_side(flash, phases: Phases, records, train_videos,
+                    val_videos, seed: int, smi: str) -> None:
+    """Phase 13, the host side at full width: the native library built from
+    the port's source, the host evaluator (--host-eval) against the device
+    evaluator on attention and the headline, the knapsack audit, resume
+    against an uninterrupted run, training under --host-eval and
+    --profile, and KTS on the card against the float64 host route."""
+    import logging
+
+    from edsnet_torch import config as config_lib
+    from edsnet_torch import native, trainer
+    from edsnet_torch.evaluate import (evaluate, predict_batches,
+                                       summarize_host)
+    from edsnet_torch.ops import kts
+    from edsnet_torch.parallel.eval_device import (evaluate_on_device,
+                                                   prepare_eval_batches)
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = native.load()
+    phases.check(lib is not None and lib.path.parent == native.BUILD_DIR
+                 and native.SOURCE.parent == native.SRC_DIR,
+                 f"native library built from {native.SOURCE.relative_to(REPO)}"
+                 f" into {lib.path.relative_to(REPO) if lib else None} "
+                 f"({(time.perf_counter() - t0) * 1e3:.0f} ms) and loaded")
+
+    heads = {
+        "attention": ["anchor-based", "--seed", str(seed)],
+        "nystromformer": ["anchor-based", "--base-model", "nystromformer",
+                          "--anchor-scales", "12", "--seed", str(seed)]}
+    audit_batches = None
+    for label, flags in heads.items():
+        args = config_lib.get_arguments(flags)
+        model = seeded_model(args, device).eval()
+        prepared = prepare_eval_batches(records, 4, args.bucket_size, device)
+        evaluate(model, records[:1], args.nms_thresh)          # warm-up
+        device_videos, host_videos = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_on_device(model, records, args.nms_thresh,
+                           prepared=prepared, per_video=device_videos)
+        device_ms = (time.perf_counter() - t0) * 1e3
+        reset_launches(flash)
+        evaluate(model, records, args.nms_thresh, prepared=prepared,
+                 per_video=host_videos)
+        launches = launch_counts(flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = predict_batches(model, prepared, args.nms_thresh)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        summarize_host(batches)
+        summ_ms = (time.perf_counter() - t0) * 1e3
+        gaps = [abs(h["fscore"] - d["fscore"])
+                for h, d in zip(host_videos, device_videos)]
+        print(f"  {label}: host F per video "
+              f"{[round(h['fscore'], 6) for h in host_videos]}")
+        phases.check(len(host_videos) == len(records) and max(gaps) <= 1e-6,
+                     f"{label} --host-eval: per-video F equal to the device "
+                     f"evaluator's (max gap {max(gaps):.2e})")
+        want = len(prepared) if label == "attention" else 0
+        phases.check(launches["flash_attention_fwd"] == want
+                     and launches["flash_attention_dq"] == 0
+                     and launches["flash_attention_dkv"] == 0,
+                     f"{label} --host-eval: forward launches "
+                     f"{launches['flash_attention_fwd']} == {want}")
+        print(f"  [{smi}] {label}: evaluation of {len(records)} videos, "
+              f"device evaluator {device_ms:.1f} ms; host evaluator "
+              f"{predict_ms + summ_ms:.1f} ms = predict+NMS on the card "
+              f"{predict_ms:.1f} ms + host summaries (rasterise, knapsack, "
+              f"F) {summ_ms:.1f} ms")
+        if label == "attention":
+            audit_batches = batches
+
+    # the audit in a child process, stopped if the branch and bound runs
+    # past its budget
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        n_audited, report, audit_s = pool.apply_async(
+            _audit_worker, (audit_batches,)).get(timeout=AUDIT_BUDGET_S)
+        print(f"  attention: {report} ({audit_s:.2f} s)")
+        phases.check(n_audited == len(records),
+                     f"knapsack audit over {n_audited} videos")
+    except multiprocessing.TimeoutError:
+        phases.check(False, f"knapsack audit finished within "
+                            f"{AUDIT_BUDGET_S} s")
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # resume: 1 epoch, then a resume to 2, against 2 uninterrupted epochs
+    for label, flags in heads.items():
+        base = config_lib.get_arguments(flags + [
+            "--batch-size", "4", "--resume", "--state-save-every", "1"])
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for name, epochs in (("a", 2), ("b", 1), ("b", 2)):
+                args = config_args(base, max_epoch=epochs,
+                                   model_dir=f"{tmp}/{name}")
+                t0 = time.perf_counter()
+                runs[name] = trainer.train_records(
+                    args, train_videos, val_videos, f"{tmp}/{name}.pt")
+                run_ms = (time.perf_counter() - t0) * 1e3
+            states = {n: torch.load(f"{tmp}/{n}.pt.state",
+                                    map_location="cpu", weights_only=True)
+                      for n in ("a", "b")}
+            size_mb = Path(f"{tmp}/a.pt.state").stat().st_size / 2 ** 20
+            gap = snapshot_gap(states["a"], states["b"])
+            same_f = states["a"]["best_fscore"] == states["b"]["best_fscore"]
+            print(f"  {label}: .state file {size_mb:.2f} MiB; resumed epoch "
+                  f"2 in {run_ms:.0f} ms; best F {states['a']['best_fscore']}"
+                  f" / {states['b']['best_fscore']}; parameter gap {gap:.3e}")
+            if gap == 0.0 and same_f:
+                phases.check(True, f"{label}: 1 epoch + --resume to 2 equals "
+                                   f"2 uninterrupted epochs bit for bit")
+            else:
+                runs["c"] = trainer.train_records(
+                    config_args(base, max_epoch=2, model_dir=f"{tmp}/c"),
+                    train_videos, val_videos, f"{tmp}/c.pt")
+                state_c = torch.load(f"{tmp}/c.pt.state", map_location="cpu",
+                                     weights_only=True)
+                floor = snapshot_gap(states["a"], state_c)
+                ops = nondeterministic_ops(base, train_videos, val_videos)
+                print(f"  {label}: two uninterrupted runs differ by "
+                      f"{floor:.3e}; nondeterministic ops {ops}")
+                phases.check(bool(ops) and gap <= floor,
+                             f"{label}: resume gap {gap:.3e} <= the gap of "
+                             f"two uninterrupted runs {floor:.3e}, named "
+                             f"{ops}")
+            if label == "attention":
+                device_f1 = runs["a"][1]
+
+    # --host-eval training, against the device path's F list (run a)
+    args = config_lib.get_arguments(heads["attention"] + [
+        "--batch-size", "4", "--max-epoch", "2", "--host-eval"])
+    with tempfile.TemporaryDirectory() as tmp:
+        _, host_f1, _ = trainer.train_records(args, train_videos, val_videos,
+                                              f"{tmp}/h.pt")
+    phases.check(len(host_f1) == len(device_f1) and all(
+        abs(h - d) <= 1e-6 for h, d in zip(host_f1, device_f1)),
+        f"attention --host-eval training: F per epoch {host_f1} == the "
+        f"device path's {device_f1}")
+
+    # --profile: a trace of epoch 1 with CUDA kernel events, fenced steps
+    args = config_lib.get_arguments(heads["nystromformer"] + [
+        "--batch-size", "4", "--max-epoch", "2", "--profile"])
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    root = logging.getLogger()
+    root.addHandler(handler)
+    old_level = root.level
+    root.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            args.model_dir = tmp
+            trainer.train_records(args, train_videos, val_videos,
+                                  f"{tmp}/p.pt")
+            traces = list(Path(tmp, "profile").glob("trace_*.json"))
+            events = (json.loads(traces[0].read_text())["traceEvents"]
+                      if traces else [])
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(old_level)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    top = [m for m in messages if "top device ops" in m]
+    throughput = [m for m in messages if m.startswith("train throughput")]
+    phases.check(len(traces) == 1 and len(kernels) > 0,
+                 f"--profile: {len(traces)} trace with {len(kernels)} CUDA "
+                 f"kernel events")
+    print(f"  [{smi}] nystromformer --profile: {top[-1] if top else top}")
+    print(f"  [{smi}] nystromformer --profile, fenced steps: "
+          f"{throughput[-1] if throughput else throughput}")
+
+    # KTS on the 8 videos' unit features: the card against the float64 host
+    kts.cpd_auto_device(records[0].seq @ records[0].seq.T,
+                        records[0].seq.shape[0] - 1, 1, device=device)
+    before = (kts.cpd_auto_device.device_calls, kts.cpd_auto_device.fallbacks)
+    host_ms, dev_ms, equal = [], [], []
+    for r in records:
+        n = r.seq.shape[0]
+        K = r.seq @ r.seq.T
+        t0 = time.perf_counter()
+        host_cps, _ = kts.cpd_auto(K, n - 1, 1)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_cps, _ = kts.cpd_auto_device(K, n - 1, 1, device=device)
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+        equal.append(np.array_equal(host_cps, dev_cps))
+    routes = (kts.cpd_auto_device.device_calls - before[0],
+              kts.cpd_auto_device.fallbacks - before[1])
+    print(f"  [{smi}] KTS ms per video (n {[r.seq.shape[0] for r in records]})"
+          f": native float64 host {[round(t, 1) for t in host_ms]}, card "
+          f"{[round(t, 1) for t in dev_ms]}")
+    phases.check(all(equal) and routes == (len(records), 0),
+                 f"KTS: card change points equal the host's on "
+                 f"{sum(equal)}/{len(records)} videos; (device calls, "
+                 f"fallbacks) {routes}")
+    big = (records[0].seq * 100.0) @ (records[0].seq * 100.0).T
+    n = big.shape[0]
+    got, _ = kts.cpd_auto_device(big, n - 1, 1, device=device)
+    fell = kts.cpd_auto_device.fallbacks - before[1]
+    phases.check(fell == 1 and np.array_equal(got, kts.cpd_auto(
+        big, n - 1, 1)[0]), f"KTS: the unnormalised case took the float64 "
+                            f"fallback ({fell} counted)")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -2082,6 +2361,9 @@ def main() -> int:
     print("phase: the poolings and the attention heads at full width")
     head_launches = check_heads_and_poolings(flash, phases, records,
                                              train_videos, opts.seed, smi)
+    print("phase: the host side at full width")
+    check_host_side(flash, phases, records, train_videos, val_videos,
+                    opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1

@@ -148,7 +148,9 @@ def get_parser() -> argparse.ArgumentParser:
                         help="use independent weights per fc_block instead "
                              "of the reference's shared-weight trunk")
     parser.add_argument("--profile", action="store_true",
-                        help="emit jax profiler traces + per-step timings")
+                        help="trace epoch 1 with torch.profiler into "
+                             "{model_dir}/profile and wait for the device "
+                             "after every step (fenced frames/s)")
     parser.add_argument("--eval-every", type=int, default=1,
                         help="validate every N epochs (reference: every "
                              "epoch; eval dominates wall-clock on small "
@@ -173,9 +175,8 @@ def get_parser() -> argparse.ArgumentParser:
                              "bf16-ish by 'default'; 'highest' forces f32)")
     parser.add_argument("--device-kts", action="store_true",
                         help="run KTS change-point detection (scatter "
-                             "matrix + DP + model selection) as one jitted "
-                             "program on the accelerator instead of the "
-                             "host C++/NumPy path")
+                             "matrix + DP + model selection) on the CUDA "
+                             "card instead of the host C++/NumPy path")
     parser.add_argument("--static-batches", action="store_true",
                         help="freeze batch compositions across epochs "
                              "(round-1 behavior); default recomposes "

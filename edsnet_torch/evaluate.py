@@ -1,28 +1,39 @@
-"""Evaluation CLI: checkpoint -> predict -> NMS -> keyshot summary ->
-F-score, per split.
+"""Evaluation: checkpoint -> predict -> NMS -> keyshot summary -> F-score,
+per split, on the device evaluator (parallel/eval_device.py) or on the host.
 
-Counterpart of edsnet_tpu/evaluate.py:main and eval_fold_from_checkpoint on
-the device evaluator (parallel/eval_device.py).  Same flags, the same
+Counterpart of edsnet_tpu/evaluate.py: ``main``, ``eval_fold_from_checkpoint``,
+the host ``evaluate`` (``--host-eval``; predict and NMS on the device,
+shared with the device evaluator as ``predict_nms``, then the kept boxes
+sorted by score, rasterised and packed on the host) and ``KnapsackAudit``
+(``--knapsack-audit``, which rides the host path).  Same flags, the same
 ``{model_dir}/checkpoint/{split}.{idx}.pt`` contract (torch or flax
 checkpoints), the same printed lines, ``avg`` F over users on tvsum keys
 and ``max`` elsewhere.
 
     python -m edsnet_torch.evaluate anchor-based --splits splits/x.yml \
-        --model-dir MODEL_DIR --data-root DATA_DIR
+        --model-dir MODEL_DIR --data-root DATA_DIR [--host-eval]
     python -m edsnet_torch.evaluate anchor-free --model-depth deep ...
 """
 from __future__ import annotations
 
 import logging
 from pathlib import Path
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from edsnet_torch import config as config_lib
 from edsnet_torch.data.dataset import (AverageMeter, VideoDataset,
-                                       get_ckpt_path, load_yaml)
+                                       VideoRecord, get_ckpt_path, load_yaml)
 from edsnet_torch.models.model_zoo import get_model
-from edsnet_torch.parallel.eval_device import evaluate_on_device
+from edsnet_torch.native import load as _native_load
+from edsnet_torch.ops import summary as summ_ops
+from edsnet_torch.parallel.eval_device import (_device_of, _num_scales_of,
+                                               evaluate_on_device,
+                                               predict_nms,
+                                               prepare_eval_batches,
+                                               summary_diversity)
 from edsnet_torch.utils import checkpoint as ckpt_lib
 
 logger = logging.getLogger()
@@ -47,7 +58,7 @@ def _todo(flag, item):
                               f"A item {item})")
 
 
-def check_model_supported(args) -> None:
+def check_supported(args) -> None:
     """Raise for model, precision and device-layout flags that no CLI of
     this port serves yet."""
     if args.context_parallel:
@@ -64,26 +75,8 @@ def check_model_supported(args) -> None:
         _todo("--matmul-precision bfloat16", 14)
 
 
-def check_supported(args) -> None:
-    """Raise for flags whose paths the evaluate CLI does not serve yet."""
-    check_model_supported(args)
-    if args.host_eval:
-        _todo("--host-eval", 6)
-    if args.knapsack_audit:
-        _todo("--knapsack-audit", 6)
-
-
-def check_train_supported(args) -> None:
-    """Raise for flags whose paths the train CLI does not serve yet."""
-    check_model_supported(args)
-    if args.resume:
-        _todo("--resume", 6)
-    if args.state_save_every:
-        _todo("--state-save-every", 6)
-    if args.profile:
-        _todo("--profile", 7)
-    if args.host_eval:
-        _todo("--host-eval", 6)
+# the train CLI serves the same flags as the evaluate CLI
+check_train_supported = check_supported
 
 
 # --matmul-precision values that allow TF32 (JAX's jax_default_matmul_
@@ -105,6 +98,119 @@ def setup(args, check=check_supported) -> torch.device:
     return device
 
 
+class KnapsackAudit:
+    """Tie-selection audit: the shipped summary against the one the native
+    branch and bound packs.
+
+    Both solvers are exact on the value, but tied optima admit several item
+    sets and the two break ties differently; a flip changes the summary.
+    Per video it solves the summary once more with ``solver="bnb"`` and
+    records whether the summaries differ, and the F-score delta."""
+
+    def __init__(self):
+        self.n_videos = 0
+        self.n_diverged = 0
+        self.abs_df: List[float] = []
+        self.available = _native_load() is not None
+
+    def check(self, record: VideoRecord, kept_cls, kept_boxes,
+              eval_metric: str, pred_summ: np.ndarray) -> None:
+        """Compare ``pred_summ`` (the default solver's) with the forced
+        branch-and-bound selection."""
+        if not self.available:
+            return
+        self.n_videos += 1
+        seq_len = record.seq.shape[0]
+        summ_bnb = summ_ops.bbox2summary(
+            seq_len, kept_cls, kept_boxes, record.cps, record.n_frames,
+            record.nfps, record.picks, solver="bnb")
+        if np.array_equal(pred_summ, summ_bnb):
+            return
+        self.n_diverged += 1
+        f_dp = summ_ops.get_summ_f1score(pred_summ, record.user_summary,
+                                         eval_metric)
+        f_bnb = summ_ops.get_summ_f1score(summ_bnb, record.user_summary,
+                                          eval_metric)
+        self.abs_df.append(abs(f_dp - f_bnb))
+        logger.info("knapsack tie divergence on %s: F(dp)=%.4f F(bnb)=%.4f",
+                    record.key, f_dp, f_bnb)
+
+    def report(self) -> str:
+        if not self.available:
+            return "knapsack audit: native B&B unavailable, audit skipped"
+        if not self.n_diverged:
+            return (f"knapsack audit: 0/{self.n_videos} videos diverged "
+                    f"(DP and B&B selections identical)")
+        return (f"knapsack audit: {self.n_diverged}/{self.n_videos} videos "
+                f"diverged; |dF| mean {np.mean(self.abs_df):.4f} "
+                f"max {np.max(self.abs_df):.4f}")
+
+
+def predict_batches(model, prepared: List[Dict], nms_thresh: float):
+    """Predict and NMS every prepared eval batch on the model's device,
+    then fetch them -> [(pred_cls, boxes, keep, records)] numpy per batch,
+    padding rows included."""
+    num_scales = _num_scales_of(model)
+    pending = [(predict_nms(model, e["tb"]["seq"], e["tb"]["mask"],
+                            e["tb"]["lens"], num_scales, nms_thresh),
+                e["records"]) for e in prepared]
+    return [tuple(t.cpu().numpy() for t in out) + (records,)
+            for out, records in pending]
+
+
+def summarize_host(batches, knapsack_audit: Optional[KnapsackAudit] = None,
+                   per_video: Optional[List[Dict]] = None):
+    """Host summaries of ``predict_batches``' output -> (mean F, mean
+    diversity): each video's kept boxes sorted stably by score (highest
+    first), rasterised and packed by ``bbox2summary``, scored against its
+    users."""
+    stats = AverageMeter("fscore", "diversity")
+    for pred_cls, boxes, keeps, records in batches:
+        for i, record in enumerate(records):
+            seq_len = record.seq.shape[0]
+            keep_idx = np.where(keeps[i])[0]
+            order = np.argsort(pred_cls[i][keep_idx], kind="stable")[::-1]
+            keep_idx = keep_idx[order]
+            kept_cls = pred_cls[i][keep_idx]
+            kept_boxes = boxes[i][keep_idx].round().astype(np.int32)
+
+            pred_summ = summ_ops.bbox2summary(
+                seq_len, kept_cls, kept_boxes, record.cps, record.n_frames,
+                record.nfps, record.picks)
+            eval_metric = "avg" if "tvsum" in record.key else "max"
+            if knapsack_audit is not None:
+                knapsack_audit.check(record, kept_cls, kept_boxes,
+                                     eval_metric, pred_summ)
+            fscore = summ_ops.get_summ_f1score(
+                pred_summ, record.user_summary, eval_metric)
+            diversity = summary_diversity(pred_summ, record.seq)
+            stats.update(fscore=fscore, diversity=diversity)
+            if per_video is not None:
+                per_video.append({"key": record.key, "fscore": fscore,
+                                  "diversity": diversity,
+                                  "summary": pred_summ})
+    return stats.fscore, stats.diversity
+
+
+def evaluate(model, records: List[VideoRecord], nms_thresh: float,
+             batch_size: int = 4, bucket_size: int = 64,
+             prepared: Optional[List[Dict]] = None,
+             knapsack_audit: Optional[KnapsackAudit] = None,
+             per_video: Optional[List[Dict]] = None):
+    """Host evaluator -> (mean F, mean diversity).
+
+    The batches are the device evaluator's (``prepared``, or padded from
+    ``records``), predicted and NMS'd on the device; the summaries and
+    scores are made on the host in float64 (``summarize_host``).  A list
+    given as ``per_video`` receives one dict per video, as
+    ``evaluate_on_device``'s does."""
+    if prepared is None:
+        prepared = prepare_eval_batches(records, batch_size, bucket_size,
+                                        _device_of(model))
+    return summarize_host(predict_batches(model, prepared, nms_thresh),
+                          knapsack_audit, per_video)
+
+
 def main(argv=None):
     args = config_lib.get_arguments(argv)
     device = setup(args)
@@ -120,8 +226,19 @@ def main(argv=None):
         stats = AverageMeter("fscore", "diversity")
 
         for split_idx, split in enumerate(splits):
+            # the audit compares host solvers, so it rides the host path
+            audit = KnapsackAudit() if args.knapsack_audit else None
+            if audit is not None or args.host_eval:
+                eval_fn, eval_kwargs = evaluate, {"knapsack_audit": audit}
+            else:
+                eval_fn, eval_kwargs = evaluate_on_device, {}
             fscore, diversity = eval_fold_from_checkpoint(
-                args, model, split_path, split_idx, split["test_keys"])
+                args, model, split_path, split_idx, split["test_keys"],
+                eval_fn=eval_fn, **eval_kwargs)
+            if audit is not None:
+                msg = audit.report()
+                logger.info(msg)
+                print(msg)
             stats.update(fscore=fscore, diversity=diversity)
             msg = (f"{split_path.stem} split {split_idx}: diversity: "
                    f"{diversity:.4f}, F-score: {fscore:.4f}")
@@ -135,9 +252,11 @@ def main(argv=None):
 
 
 def eval_fold_from_checkpoint(args, model, split_path, fold_idx: int,
-                              test_keys):
+                              test_keys, eval_fn=evaluate_on_device,
+                              **eval_kwargs):
     """Restore one fold's checkpoint into ``model`` and evaluate it on its
-    test keys -> ``(fscore, diversity)``."""
+    test keys with ``eval_fn`` (the device evaluator, or the host
+    ``evaluate``) -> ``(fscore, diversity)``."""
     ckpt_path = get_ckpt_path(args.model_dir, split_path, fold_idx)
     ckpt_lib.load_checkpoint(model, ckpt_path)
     model.eval()
@@ -146,9 +265,9 @@ def eval_fold_from_checkpoint(args, model, split_path, fold_idx: int,
         records = [val_set[i] for i in range(len(val_set))]
     finally:
         val_set.close()
-    return evaluate_on_device(model, records, args.nms_thresh,
-                              batch_size=max(args.batch_size, 1),
-                              bucket_size=args.bucket_size)
+    return eval_fn(model, records, args.nms_thresh,
+                   batch_size=max(args.batch_size, 1),
+                   bucket_size=args.bucket_size, **eval_kwargs)
 
 
 if __name__ == "__main__":

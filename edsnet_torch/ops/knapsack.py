@@ -1,10 +1,11 @@
-"""Exact 0/1 knapsack by dense DP: on the host, and batched on the device.
+"""Exact 0/1 knapsack: on the host, and batched on the device.
 
 Counterpart of edsnet_tpu/ops/knapsack.py: its host ``knapsack`` is
-``knapsack_host`` here (with ``_knapsack_numpy``; it serves training-label
-preparation), and its ``knapsack_jax`` is the batched device ``knapsack``.
-Both keep the same reverse backtrack, so the selected set matches, not only
-the value.
+``knapsack_host`` here (the dense DP ``_knapsack_numpy`` or the native C++
+branch and bound; it serves training-label preparation and the host
+evaluator), and its ``knapsack_jax`` is the batched device ``knapsack``.
+The DPs keep the same reverse backtrack, so the selected set matches, not
+only the value.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Iterable, List
 
 import numpy as np
 import torch
+
+from edsnet_torch.native import load as _native_load
 
 _NEG_BIG = -(10 ** 9)
 
@@ -43,16 +46,33 @@ def _knapsack_numpy(values: np.ndarray, weights: np.ndarray,
 
 
 def knapsack_host(values: Iterable[int], weights: Iterable[int],
-                  capacity: int) -> List[int]:
+                  capacity: int, solver: str = "auto") -> List[int]:
     """Exact 0/1 knapsack on the host -> packed item indices, ascending.
 
-    The dense DP at every table size.  The TPU package hands tables above
-    5e7 cells to its native C++ branch and bound; the port does not load
-    that library, and a shot knapsack at the 15 % budget stays far below
-    that size."""
-    return _knapsack_numpy(np.asarray(list(values), dtype=np.int64),
-                           np.asarray(list(weights), dtype=np.int64),
-                           int(capacity))
+    ``solver="auto"`` runs the dense DP up to 5e7 table cells and the
+    native branch and bound (``native.py``) above that, or the DP when the
+    library is unavailable.  ``"dp"`` and ``"bnb"`` force one solver: both
+    are exact on the value, but on tied optima they may pack different
+    items (the knapsack audit measures that); ``"bnb"`` raises
+    ``RuntimeError`` without the library."""
+    values = np.asarray(list(values), dtype=np.int64)
+    weights = np.asarray(list(weights), dtype=np.int64)
+    capacity = int(capacity)
+    if solver == "dp":
+        return _knapsack_numpy(values, weights, capacity)
+    if solver == "bnb":
+        lib = _native_load()
+        if lib is None:
+            raise RuntimeError("native C++ knapsack unavailable")
+        return lib.knapsack(values, weights, capacity)
+    if solver != "auto":
+        raise ValueError(f"unknown knapsack solver {solver!r}")
+    if values.size * max(capacity, 1) <= 50_000_000:
+        return _knapsack_numpy(values, weights, capacity)
+    lib = _native_load()
+    if lib is not None:
+        return lib.knapsack(values, weights, capacity)
+    return _knapsack_numpy(values, weights, capacity)
 
 
 def knapsack(values: torch.Tensor, weights: torch.Tensor,

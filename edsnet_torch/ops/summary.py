@@ -2,8 +2,11 @@
 
 Counterpart of edsnet_tpu/ops/summary.py: ``f1_score_jax`` ->
 ``f1_score``, ``keyshot_summ_jax`` -> ``keyshot_summ`` (batched over videos),
-and the host numpy ``upsample_scores``, ``get_keyshot_summ`` (training
-targets) and ``get_summ_diversity``, with ``SAMPLE_RATE``.  Shot scores keep
+and the host numpy functions: ``upsample_scores``, ``get_keyshot_summ``
+(training targets and the host evaluator, with the knapsack ``solver``),
+``bbox2summary``, ``downsample_summ``, ``f1_score_host`` (JAX's host
+``f1_score``), ``get_summ_f1score`` and ``get_summ_diversity``, with
+``SAMPLE_RATE``.  Shot scores keep
 the reference's ``int(1000 * mean)`` truncation: over masked per-segment
 sums on the device, over float32 means on the host, where a NaN mean raises
 ``ValueError`` as ``int(nan)`` does in the reference.
@@ -30,11 +33,18 @@ def upsample_scores(pred: np.ndarray, picks: np.ndarray,
     return frame_scores
 
 
+def downsample_summ(summ: np.ndarray) -> np.ndarray:
+    """Every ``SAMPLE_RATE``-th frame of a frame summary."""
+    return summ[::SAMPLE_RATE]
+
+
 def get_keyshot_summ(pred: np.ndarray, cps: np.ndarray, n_frames: int,
                      nfps: np.ndarray, picks: np.ndarray,
-                     proportion: float = 0.15) -> np.ndarray:
+                     proportion: float = 0.15,
+                     solver: str = "auto") -> np.ndarray:
     """Keyshot summary on the host: per-shot means of the upsampled scores,
-    then the knapsack at ``proportion`` of the frames -> [n_frames] bool."""
+    then the knapsack at ``proportion`` of the frames (``knapsack_host``'s
+    ``solver``) -> [n_frames] bool."""
     assert pred.shape == picks.shape
     n_frames = int(n_frames)
     frame_scores = upsample_scores(pred, picks, n_frames)
@@ -46,12 +56,61 @@ def get_keyshot_summ(pred: np.ndarray, cps: np.ndarray, n_frames: int,
             raise ValueError("cannot convert float NaN to integer")
         seg_scores[seg_idx] = int(mean)
 
-    packed = knapsack_host(seg_scores, nfps, int(n_frames * proportion))
+    packed = knapsack_host(seg_scores, nfps, int(n_frames * proportion),
+                           solver=solver)
     summary = np.zeros(n_frames, dtype=bool)
     for seg_idx in packed:
         first, last = cps[seg_idx]
         summary[first:last + 1] = True
     return summary
+
+
+def bbox2summary(seq_len: int, pred_cls: np.ndarray, pred_bboxes: np.ndarray,
+                 change_points: np.ndarray, n_frames: int, nfps: np.ndarray,
+                 picks: np.ndarray, solver: str = "auto") -> np.ndarray:
+    """Max-score rasterisation of [K] scores and [K, 2] int (left, right)
+    boxes over ``seq_len`` positions, then the keyshot summary."""
+    score = np.zeros(seq_len, dtype=np.float32)
+    for bbox_idx in range(len(pred_bboxes)):
+        lo, hi = pred_bboxes[bbox_idx, 0], pred_bboxes[bbox_idx, 1]
+        score[lo:hi] = np.maximum(score[lo:hi], [pred_cls[bbox_idx]])
+    return get_keyshot_summ(score, change_points, n_frames, nfps, picks,
+                            solver=solver)
+
+
+def f1_score_host(pred: np.ndarray, test: np.ndarray) -> float:
+    """Binary F1 of two same-shape masks, in float64 on the host."""
+    assert pred.shape == test.shape
+    pred = np.asarray(pred, dtype=bool)
+    test = np.asarray(test, dtype=bool)
+    overlap = (pred & test).sum()
+    if overlap == 0:
+        return 0.0
+    precision = overlap / pred.sum()
+    recall = overlap / test.sum()
+    return float(2 * precision * recall / (precision + recall))
+
+
+def get_summ_f1score(pred_summ: np.ndarray, test_summ: np.ndarray,
+                     eval_metric: str = "avg") -> float:
+    """F1 of a frame summary against [U, n_frames] user summaries, cut or
+    zero-padded to their length; ``avg`` (TVSum) or ``max`` (SumMe) over
+    users."""
+    pred_summ = np.asarray(pred_summ, dtype=bool)
+    test_summ = np.asarray(test_summ, dtype=bool)
+    _, n_frames = test_summ.shape
+
+    if pred_summ.size > n_frames:
+        pred_summ = pred_summ[:n_frames]
+    elif pred_summ.size < n_frames:
+        pred_summ = np.pad(pred_summ, (0, n_frames - pred_summ.size))
+
+    f1s = [f1_score_host(user_summ, pred_summ) for user_summ in test_summ]
+    if eval_metric == "avg":
+        return float(np.mean(f1s))
+    if eval_metric == "max":
+        return float(np.max(f1s))
+    raise ValueError(f"Invalid eval metric {eval_metric}")
 
 
 def f1_score(pred: torch.Tensor, test: torch.Tensor) -> torch.Tensor:

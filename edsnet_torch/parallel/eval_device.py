@@ -3,9 +3,11 @@ keyshot summary (knapsack DP) -> F1, one batch of videos at a time.
 
 Counterpart of edsnet_tpu/parallel/eval_device.py: ``batch_eval_device``
 (the same padding rules), ``_eval_batch_device`` (batched instead of
-vmapped), ``_num_scales_of``, ``eval_fscore_device`` and
-``evaluate_on_device``, on one device and without a mesh, for both heads.
-Diversity is computed on the host from the returned summaries.
+vmapped; its predict, clip, round and NMS are ``predict_nms``, which the
+host evaluator in evaluate.py shares), ``_num_scales_of``,
+``eval_fscore_device`` and ``evaluate_on_device``, on one device and without
+a mesh, for both heads.  Diversity is computed on the host from the
+returned summaries.
 """
 from __future__ import annotations
 
@@ -106,20 +108,31 @@ def batch_eval_device(records: List[VideoRecord], batch_size: int,
 
 
 @torch.inference_mode()
+def predict_nms(model, seq: torch.Tensor, mask: torch.Tensor,
+                lens: torch.Tensor, num_scales: int, nms_thresh: float):
+    """Predict a padded batch, clip each box to its video's length, round
+    it, and run the masked NMS per row -> (pred_cls [B, T], boxes [B, T, 2]
+    float32, keep [B, T] bool), T = positions x scales.  The host evaluator
+    and ``_eval_batch_device`` share it."""
+    pred_cls, boxes = model.predict(seq, mask)
+    total = pred_cls.shape[1]
+    positions = torch.arange(total, device=pred_cls.device) // num_scales
+    valid = positions[None, :] < lens[:, None]
+    len_f = lens.to(torch.float32)[:, None, None]
+    boxes_c = torch.round(torch.minimum(torch.clamp(boxes, min=0.0), len_f))
+    return pred_cls, boxes_c, nms_masked(pred_cls, boxes_c, nms_thresh, valid)
+
+
+@torch.inference_mode()
 def _eval_batch_device(model, batch: Dict[str, torch.Tensor],
                        num_scales: int, nms_thresh: float, frame_bucket: int,
                        uniform_rate: int = 0):
     """One padded batch -> (fscores [B], summaries [B, frame_bucket])."""
-    pred_cls, boxes = model.predict(batch["seq"], batch["mask"])
-    b, total = pred_cls.shape
-    n = total // num_scales
+    pred_cls, boxes_c, keep = predict_nms(model, batch["seq"], batch["mask"],
+                                          batch["lens"], num_scales,
+                                          nms_thresh)
+    n = pred_cls.shape[1] // num_scales
     device = pred_cls.device
-    lens = batch["lens"]
-    positions = torch.arange(total, device=device) // num_scales
-    valid = positions[None, :] < lens[:, None]
-    len_f = lens.to(torch.float32)[:, None, None]
-    boxes_c = torch.round(torch.minimum(torch.clamp(boxes, min=0.0), len_f))
-    keep = nms_masked(pred_cls, boxes_c, nms_thresh, valid)
 
     # max-score rasterisation over pick positions
     pos = torch.arange(n, device=device)
@@ -144,6 +157,16 @@ def _eval_batch_device(model, batch: Dict[str, torch.Tensor],
     avg = torch.where(user_valid, f1s, 0.0).sum(dim=-1) / n_users
     mx = f1s.amax(dim=-1)
     return torch.where(is_avg, avg, mx), summ
+
+
+def summary_diversity(summary: np.ndarray, seq: np.ndarray) -> float:
+    """Diversity of a frame summary over the video's features: the summary
+    down-sampled to positions, cut or zero-padded to their count."""
+    seq_len = seq.shape[0]
+    down = summ_ops.downsample_summ(summary)[:seq_len]
+    if down.size < seq_len:
+        down = np.pad(down, (0, seq_len - down.size))
+    return summ_ops.get_summ_diversity(down, seq)
 
 
 def prepare_eval_batches(records: List[VideoRecord], batch_size: int,
@@ -215,12 +238,8 @@ def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
         fs, summs = fs.cpu().numpy(), summs.cpu().numpy()
         for j, r in enumerate(recs):
             fscores.append(float(fs[j]))
-            seq_len = r.seq.shape[0]
-            down = summs[j][:int(r.n_frames)][::summ_ops.SAMPLE_RATE]
-            down = down[:seq_len]
-            if down.size < seq_len:
-                down = np.pad(down, (0, seq_len - down.size))
-            diversities.append(summ_ops.get_summ_diversity(down, r.seq))
+            diversities.append(summary_diversity(summs[j][:int(r.n_frames)],
+                                                 r.seq))
             if per_video is not None:
                 per_video.append({"key": r.key, "fscore": fscores[-1],
                                   "diversity": diversities[-1],

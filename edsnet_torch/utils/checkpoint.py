@@ -1,19 +1,26 @@
 """Checkpoint save/load with the reference's on-disk naming contract,
 ``{model_dir}/checkpoint/{split_file}.{idx}.pt``.
 
-Counterpart of edsnet_tpu/utils/checkpoint.py:save_checkpoint /
-load_checkpoint.  Save writes a torch ``state_dict``.  Load reads either
-that or a flax msgpack checkpoint written by edsnet_tpu (the variables
-dict, ``params`` and ``constants``, as msgpack maps, each array an ext
-type 1 holding ``(shape, dtype name, C-order bytes)``), which goes through
-the weight bridge.  ``msgpack`` is imported only for the
-latter.
+Counterpart of edsnet_tpu/utils/checkpoint.py.  ``save_checkpoint`` writes
+a torch ``state_dict``.  ``load_checkpoint`` reads either that or a flax
+msgpack checkpoint written by edsnet_tpu (the variables dict, ``params`` and
+``constants``, as msgpack maps, each array an ext type 1 holding ``(shape,
+dtype name, C-order bytes)``), which goes through the weight bridge.
+``msgpack`` is imported only for the latter.
+
+``save_train_state`` / ``load_train_state`` / ``restore_np_rng`` keep the
+resumable train state at ``{checkpoint}.state`` in ``torch.save`` format:
+the model's and Adam's ``state_dict``, the next epoch, the best F-score and
+the trainer's RNG streams (the numpy ``RandomState`` that composes batches
+and the torch generators of dropout and label sampling), so a resumed run
+replays an uninterrupted one.  The TPU package's msgpack snapshots are not
+read.
 """
 from __future__ import annotations
 
 import io
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +38,56 @@ def save_checkpoint(model: nn.Module | Mapping[str, torch.Tensor],
     path.parent.mkdir(parents=True, exist_ok=True)
     state = model.state_dict() if isinstance(model, nn.Module) else model
     torch.save(dict(state), path)
+
+
+def save_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     epoch: int, best_fscore: float, path,
+                     np_rng: Optional[np.random.RandomState] = None,
+                     generators: Optional[Mapping[str, torch.Generator]]
+                     = None) -> None:
+    """Write the resumable train state: ``epoch`` is the next one to run.
+    The file is replaced in one step, so a crash mid-write keeps the last
+    snapshot."""
+    payload: Dict[str, Any] = {
+        "model": dict(model.state_dict()),
+        "optimizer": optimizer.state_dict(),
+        "epoch": int(epoch),
+        "best_fscore": float(best_fscore),
+    }
+    if np_rng is not None:
+        _, keys, pos, has_gauss, cached = np_rng.get_state()
+        payload["np_rng"] = {"keys": torch.from_numpy(keys.astype(np.int64)),
+                             "pos": int(pos), "has_gauss": int(has_gauss),
+                             "cached": float(cached)}
+    if generators:
+        payload["generators"] = {name: g.get_state()
+                                 for name, g in generators.items()}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, tmp)
+    tmp.replace(path)
+
+
+def load_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     path) -> Tuple[int, float, Dict[str, Any]]:
+    """Restore a snapshot into ``model`` and ``optimizer`` -> (next epoch,
+    best F-score, extras); ``extras`` holds the saved ``np_rng`` payload and
+    ``generators`` states, where recorded.  It is read onto the CPU: the
+    loads move each tensor to its parameter's device, and Adam's step
+    counts and the generator states stay on the CPU, as in a fresh run."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(raw["model"], strict=True)
+    optimizer.load_state_dict(raw["optimizer"])
+    extras = {k: raw[k] for k in ("np_rng", "generators") if k in raw}
+    return int(raw["epoch"]), float(raw["best_fscore"]), extras
+
+
+def restore_np_rng(rng: np.random.RandomState, payload) -> None:
+    """Apply a saved numpy ``RandomState`` payload in place."""
+    rng.set_state(("MT19937", payload["keys"].numpy().astype(np.uint32),
+                   int(payload["pos"]), int(payload["has_gauss"]),
+                   float(payload["cached"])))
 
 
 def _ndarray(data: bytes) -> np.ndarray:

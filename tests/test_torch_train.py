@@ -149,9 +149,7 @@ def test_dropout_follows_its_generator():
 
 @pytest.mark.parametrize("flags", [
     ["--model-depth", "cross-attention"], ["--matmul-precision", "bfloat16"],
-    ["--resume"], ["--state-save-every", "5"], ["--profile"],
-    ["--host-eval"], ["--num-devices", "2"],
-    ["--tensor-parallel", "2"]])
+    ["--num-devices", "2"], ["--tensor-parallel", "2"]])
 def test_train_flags_not_served_raise(flags):
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
