@@ -146,13 +146,30 @@ Phases, each of which must pass (exit code 1 otherwise):
    8 videos' unit features, the card's change points equal to the native
    float64 host route's on every video with no fallback, an unnormalised
    kernel taking the counted float64 fallback, and ms per video on each
-   route.
+   route;
+14. the motion head (--model-depth cross-attention) at full width: F
+   1024, 8 heads, hidden 128, scales 4 8 16 32, --attention-depth 2, the 8
+   videos with synthetic motion features (one unit-norm row per position)
+   at widths 1024 and 512; the classic and the local-global encoder at
+   JAX's parameter counts (26,398,595 and 44,227,459), each evaluated on
+   the kernel and the dense route (per-video F equal; forward launches per
+   evaluation 7 and 35, 28 of local-global's at head dim 512), pred_cls
+   within 1e-4 of float64 on every eval batch, --host-eval per-video F
+   within 1e-6 of the device evaluator's; at motion width 512 the classic
+   head trained 2 epochs as in phase 6, its best checkpoint through
+   evaluate.eval_checkpoint (evaluate.main after the h5 read) giving the
+   best F on both evaluators and raising on width-1024 videos, a step per
+   bucket at f32, bf16 and --remat (the remat step's parameters within
+   1e-6 of the plain one's); --matmul-precision bfloat16 bit-equal to
+   default (TF32) on the headline, with its gap to float64; predict, eval
+   and step times and peak memory.
 
 The last lines are a JSON object describing each kernel (``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
-evaluate paths, and flash_fwd_cluster_kernel as two entries: head dim 512
-at (8, 576, 512) with its launches on phase 12's anchor-based
-local-global evaluation, and head dim 256 at (16, 2304, 256) with its
+evaluate paths, ``launches_motion`` on each of phase 14's, and
+flash_fwd_cluster_kernel as two entries: head dim 512 at (8, 576, 512)
+with its launches on phase 12's anchor-based local-global evaluation and
+phase 14's, and head dim 256 at (16, 2304, 256) with its
 launches on phase 11's anchor-free deep predict, each with the replaced
 kernel's time), the nvidia-smi line, and {"ok": true, "device": {...}}.
 Without a CUDA card, or without the rest of the repository beside this
@@ -538,12 +555,14 @@ def check_flash_autograd(flash, phases: Phases) -> Dict[str, int]:
 
 
 def check_training(flash, phases: Phases, train_videos, val_videos,
-                   args, expect_kernels: bool = True) -> Dict[str, int]:
+                   args, expect_kernels: bool = True,
+                   on_checkpoint=None) -> Dict[str, int]:
     """The training path at full width through trainer.train_records (the
     step of ``args.model``); returns the launch counts of that run.
     ``expect_kernels``: the backbone is attention, whose validations launch
     the forward kernel once per eval batch; otherwise no kernel may
-    launch."""
+    launch.  ``on_checkpoint(path, best F)`` runs on the best checkpoint
+    before it is deleted."""
     from edsnet_torch import trainer
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
@@ -591,6 +610,8 @@ def check_training(flash, phases: Phases, train_videos, val_videos,
             reloaded_f, _ = evaluate_on_device(
                 fresh, val_videos, args.nms_thresh,
                 batch_size=args.batch_size, bucket_size=args.bucket_size)
+            if on_checkpoint is not None:
+                on_checkpoint(f"{tmp}/best.pt", best)
     finally:
         setattr(trainer, step_name, real_step)
         trainer.eval_fscore_device = real_eval
@@ -975,6 +996,14 @@ def seeded_model(args, device: torch.device):
     return model.to(device)
 
 
+def model_inputs(tb):
+    """An eval batch's predict inputs: (seq, mask), or (seq, motion, mask,
+    motion_mask) for the motion head's batches."""
+    if "motion" in tb:
+        return tb["seq"], tb["motion"], tb["mask"], tb["motion_mask"]
+    return tb["seq"], tb["mask"]
+
+
 def f64_errors(model, args, prepared, keep_from_card: bool = False):
     """pred_cls and boxes of ``model`` (eval mode, on the card) on every
     eval batch of ``prepared`` against the same module and weights run in
@@ -987,7 +1016,8 @@ def f64_errors(model, args, prepared, keep_from_card: bool = False):
     from edsnet_torch.models.model_zoo import get_model
     from edsnet_torch.parallel.eval_device import _num_scales_of
 
-    ref = get_model(args.model, **vars(args))
+    ref = get_model(args.model, **{
+        **vars(args), "motion_width": getattr(model, "motion_width", None)})
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     ref = ref.double().eval()
     real_keep = gcn.top_similarity_keep
@@ -1009,11 +1039,12 @@ def f64_errors(model, args, prepared, keep_from_card: bool = False):
             with torch.inference_mode():
                 if keep_from_card:
                     gcn.top_similarity_keep = record
-                got_cls, got_boxes = model.predict(tb["seq"], tb["mask"])
+                got_cls, got_boxes = model.predict(*model_inputs(tb))
                 if keep_from_card:
                     gcn.top_similarity_keep = replay
-                want_cls, want_boxes = ref.predict(tb["seq"].cpu().double(),
-                                                   tb["mask"].cpu())
+                want_cls, want_boxes = ref.predict(*(
+                    t.cpu().double() if t.is_floating_point() else t.cpu()
+                    for t in model_inputs(tb)))
         finally:
             gcn.top_similarity_keep = real_keep
         changed.append(sum(flips))
@@ -2167,6 +2198,294 @@ def check_host_side(flash, phases: Phases, records, train_videos,
     print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# JAX's counts (python -m edsnet_tpu.model_info anchor-based --model-depth
+# cross-attention --base-model attention [--encoder-type local-global]) at
+# the CLI's defaults: F 1024, 8 heads, hidden 128, scales 4 8 16 32,
+# --attention-depth 2, motion width F
+MOTION_PARAMS = {"classic": 26_398_595, "local-global": 44_227_459}
+MOTION_WIDTHS = (1024, 512)
+
+
+def motion_records(records, width: int, seed: int):
+    """The videos with synthetic motion features of ``width``, one
+    unit-norm row per position."""
+    rng = np.random.RandomState(seed + width)
+    out = []
+    for r in records:
+        m = rng.randn(r.seq.shape[0], width).astype(np.float32)
+        out.append(r._replace(
+            motion_features=m / np.linalg.norm(m, axis=-1, keepdims=True)))
+    return out
+
+
+def seeded_motion_model(args, width: int, device: torch.device):
+    """``seeded_model`` of the motion head built at motion width
+    ``width``, as the trainer builds it for its data."""
+    from edsnet_torch.models.common import init_weights
+    from edsnet_torch.models.model_zoo import get_model
+
+    model = get_model(args.model, **{**vars(args), "motion_width": width})
+    init_weights(model, torch.Generator().manual_seed(args.seed))
+    return model.to(device)
+
+
+def check_motion(flash, phases: Phases, records, seed: int,
+                 smi: str) -> Dict[str, dict]:
+    """Phase 14, the motion head (--model-depth cross-attention) at full
+    width: F 1024, 8 heads, hidden 128, scales 4 8 16 32, --attention-depth
+    2, seeded random weights, the 8 videos with synthetic motion features
+    of widths 1024 and 512.
+    - both encoder types: JAX's parameter counts at motion width 1024; the
+      8 videos evaluated on the kernel route (forward launches per
+      evaluation 7 on classic, 35 on local-global, 28 of them at head dim
+      512) and on the dense route with the same per-video F; pred_cls
+      within 1e-4 of float64 on every eval batch (classic also at motion
+      width 512); the host evaluator (--host-eval) per-video F within 1e-6
+      of the device evaluator's; predict ms per batch, evaluation ms and
+      peak memory;
+    - classic at motion width 512: 2 epochs through trainer.train_records
+      (phase 6's checks), the best checkpoint through
+      evaluate.eval_checkpoint (evaluate.main's path after the h5 read;
+      the videos are in memory, so h5py need not be installed) reproducing
+      the best F on the device and the host evaluator, and raising
+      "expects width 512" on the width-1024 videos; a step per bucket at f32, at bf16 (float32 masters) and with
+      --remat (updated parameters within 1e-6 of the plain step's), step
+      ms and peak memory at the largest bucket;
+    - --matmul-precision bfloat16 and default: bit-equal pred_cls on the
+      headline (nystromformer, scale 12), printed with its gap to float64.
+    Returns, per encoder type, the launch counts of its evaluation."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch.evaluate import eval_checkpoint, evaluate, setup
+    from edsnet_torch.models.common import set_dropout_generator
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.parallel import steps
+    from edsnet_torch.parallel.eval_device import (evaluate_on_device,
+                                                   prepare_eval_batches)
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+
+    def cli(*flags):
+        return config_lib.get_arguments(["anchor-based", "--model-depth",
+                                         "cross-attention", *flags,
+                                         "--seed", str(seed)])
+
+    bucket = cli().bucket_size
+    videos = {w: motion_records(records, w, seed) for w in MOTION_WIDTHS}
+    prepared = {w: prepare_eval_batches(videos[w], 4, bucket, device,
+                                        need_motion=True)
+                for w in MOTION_WIDTHS}
+    largest = prepared[1024][-1]["tb"]
+    print(f"  motion rows per eval batch "
+          f"{[int(e['tb']['motion'].shape[1]) for e in prepared[1024]]}")
+
+    def real_of(tb):
+        return tb["mask"].repeat_interleave(4, dim=1)
+
+    def predict_all(model, width):
+        with torch.inference_mode():
+            return [model.predict(*model_inputs(e["tb"]))[0]
+                    for e in prepared[width]]
+
+    launched = {}
+    for encoder in ("classic", "local-global"):
+        label = f"motion head, {encoder} encoder"
+        args = cli("--encoder-type", encoder)
+        setup(args)
+        model = seeded_model(args, device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        want_params = MOTION_PARAMS[encoder]
+        phases.check(n_params == want_params,
+                     f"{label}: {n_params} parameters (JAX's {want_params})")
+        evaluate_on_device(model, videos[1024][:1], args.nms_thresh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash)
+        per_video = []
+        t0 = time.perf_counter()
+        mean_f, _ = evaluate_on_device(model, videos[1024], args.nms_thresh,
+                                       prepared=prepared[1024],
+                                       per_video=per_video)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = launch_counts(flash)
+        by_dim = dict(flash.flash_attention_fwd.launches_by_head_dim)
+        launched[encoder] = {"counts": counts, "by_head_dim": by_dim}
+        n_batches = len(prepared[1024])
+        want_dims = ({128: n_batches} if encoder == "classic"
+                     else {128: n_batches, 512: 4 * n_batches})
+        print(f"  {label}: mean F {mean_f:.6f}; F per video "
+              f"{[round(p['fscore'], 6) for p in per_video]}; launches "
+              f"{counts}, forward by head dim {by_dim}")
+        phases.check(counts == {"flash_attention_fwd": sum(want_dims.values()),
+                                "flash_attention_dq": 0,
+                                "flash_attention_dkv": 0}
+                     and by_dim == want_dims,
+                     f"{label} evaluate: {counts['flash_attention_fwd']} "
+                     f"forward launches, by head dim {by_dim} (want "
+                     f"{want_dims})")
+        phases.check(len(per_video) == len(records)
+                     and all(0.0 <= p["fscore"] <= 1.0 for p in per_video),
+                     f"{label}: every F in [0, 1]")
+        dense = get_model(args.model, **{**vars(args), "use_pallas": False})
+        dense = dense.to(device).eval()               # --no-pallas
+        dense.load_state_dict(model.state_dict())
+        dense_videos = []
+        evaluate_on_device(dense, videos[1024], args.nms_thresh,
+                           prepared=prepared[1024], per_video=dense_videos)
+        same_f = [a["fscore"] == b["fscore"] for a, b in zip(per_video,
+                                                             dense_videos)]
+        phases.check(all(same_f), f"{label}: per-video F equal on kernel and "
+                                  f"dense routes ({sum(same_f)}/"
+                                  f"{len(same_f)})")
+        err = max(float((g - w).abs()[real_of(e["tb"])].max())
+                  for g, w, e in zip(predict_all(model, 1024),
+                                     predict_all(dense, 1024),
+                                     prepared[1024]))
+        print(f"  [{smi}] {label}: pred_cls kernel vs dense route max abs "
+              f"err {err:.3e}")
+        check_against_f64(model, args, prepared[1024], phases,
+                          f"{label} (kernel route, motion width 1024)")
+        host_videos = []
+        t0 = time.perf_counter()
+        evaluate(model, videos[1024], args.nms_thresh,
+                 prepared=prepared[1024], per_video=host_videos)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        gap = max(abs(a["fscore"] - b["fscore"])
+                  for a, b in zip(per_video, host_videos))
+        phases.check(len(host_videos) == len(records) and gap <= 1e-6,
+                     f"{label} --host-eval: per-video F within 1e-6 of the "
+                     f"device evaluator (max gap {gap:.2e})")
+        with torch.inference_mode():
+            predict_ms = [cuda_ms(lambda: model.predict(
+                *model_inputs(e["tb"])), iters=5) for e in prepared[1024]]
+        print(f"  [{smi}] {label}: predict ms per batch "
+              f"{[round(t, 3) for t in predict_ms]} (buckets "
+              f"{[int(e['tb']['seq'].shape[1]) for e in prepared[1024]]}); "
+              f"eval of {len(records)} videos {eval_ms:.1f} ms on the device "
+              f"evaluator, {host_ms:.1f} ms on the host one; peak device "
+              f"memory {peak:.2f} GiB")
+        del model, dense
+        torch.cuda.empty_cache()
+
+    # classic at motion width 512: float64, training, the checkpoint path
+    label = "motion head, classic, motion width 512"
+    args = cli("--batch-size", "4", "--max-epoch", "2")
+    setup(args)
+    model = seeded_motion_model(args, 512, device).eval()
+    check_against_f64(model, args, prepared[512], phases, label)
+    val_ids = (2, 5)
+    train_videos = [r for i, r in enumerate(videos[512]) if i not in val_ids]
+    val_videos = [videos[512][i] for i in val_ids]
+
+    def through_evaluate(path, best):
+        fresh = get_model(args.model, **vars(args)).to(device)   # width 1024
+        got = {}
+        for name, fn in (("device", evaluate_on_device), ("host", evaluate)):
+            got[name], _ = eval_checkpoint(args, fresh, path, val_videos,
+                                           eval_fn=fn)
+        phases.check(fresh.motion_width == 512
+                     and all(abs(f - best) <= 1e-6 for f in got.values()),
+                     f"{label}: the best checkpoint through "
+                     f"evaluate.eval_checkpoint gives F {got} == best "
+                     f"{best:.7f} (motion width {fresh.motion_width})")
+        wide = [videos[1024][i] for i in val_ids]
+        try:
+            eval_checkpoint(args, fresh, path, wide)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        phases.check("expects width 512" in raised,
+                     f"{label}: its checkpoint on width-1024 videos raises "
+                     f"({raised!r})")
+
+    torch.cuda.reset_peak_memory_stats()
+    check_training(flash, phases, train_videos, val_videos, args,
+                   on_checkpoint=through_evaluate)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    batches = train_batches(args, train_videos, device)
+    phases.check(all("motion" in b for b in batches),
+                 f"{label}: every train batch carries motion "
+                 f"{[tuple(b['motion'].shape) for b in batches]}")
+
+    def fresh_step(**flags):
+        m = seeded_motion_model(args, 512, device)
+        set_dropout_generator(m, torch.Generator(device).manual_seed(
+            seed + 1))
+        opt = steps.make_optimizer(m.parameters(), args.lr,
+                                   args.weight_decay)
+        gen = torch.Generator(device).manual_seed(seed + 2)
+        kw = dict(lambda_reg=args.lambda_reg, neg_ratio=args.neg_sample_ratio,
+                  inc_ratio=args.incomplete_sample_ratio)
+        return m, lambda b: steps.ab_train_step(m, opt, b, gen, **kw,
+                                                **flags)
+
+    big = batches[-1]
+    # the largest bucket first, from the seeded weights: the remat step is
+    # held to the plain one there; timed after the other buckets' steps
+    # have warmed this dtype's kernels up
+    order = batches[-1:] + batches[:-1]
+    timing = {}
+    updated = {}
+    for name, flags in (("f32", {}), ("bf16", {"compute_dtype": "bfloat16"}),
+                        ("remat", {"remat": True})):
+        m, step = fresh_step(**flags)
+        losses = [step(big)["loss"]]
+        updated[name] = [p.detach().clone() for p in m.parameters()]
+        losses = torch.stack(losses + [step(b)["loss"]
+                                       for b in order[1:]]).cpu()
+        ms, gib = step_peak(lambda: step(big))
+        phases.check(bool(torch.isfinite(losses).all())
+                     and all(p.dtype == torch.float32 for p in m.parameters()),
+                     f"{label} {name}: one step per bucket "
+                     f"{[int(b['seq'].shape[1]) for b in order]}, losses "
+                     f"{[round(float(x), 4) for x in losses]} finite, "
+                     f"masters float32")
+        timing[name] = (ms, gib)
+        del m, step
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(updated["f32"], updated["remat"]))
+    phases.check(gap <= 1e-6, f"{label} --remat: the step at bucket "
+                              f"{int(big['seq'].shape[1])} updates the "
+                              f"parameters within 1e-6 of the plain step's "
+                              f"(max gap {gap:.3e})")
+    print(f"  [{smi}] {label}: train step at bucket "
+          f"{int(big['seq'].shape[1])}: "
+          + "; ".join(f"{k} {ms:.3f} ms, peak {gib:.2f} GiB"
+                      for k, (ms, gib) in timing.items())
+          + f"; peak in training {train_peak:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+
+    # --matmul-precision bfloat16 is JAX's Precision.DEFAULT: TF32 here
+    head = config_lib.get_arguments(["anchor-based", "--base-model",
+                                     "nystromformer", "--anchor-scales", "12",
+                                     "--seed", str(seed)])
+    plain = prepare_eval_batches(records, 4, head.bucket_size, device)
+    model = seeded_model(head, device).eval()
+    cls, tf32 = {}, {}
+    for precision in ("default", "bfloat16"):
+        setup(config_args(head, matmul_precision=precision))
+        tf32[precision] = torch.backends.cuda.matmul.allow_tf32
+        with torch.inference_mode():
+            cls[precision] = [model.predict(e["tb"]["seq"],
+                                            e["tb"]["mask"])[0]
+                              for e in plain]
+    f64 = f64_errors(model, head, plain)[0]          # still at bfloat16
+    setup(head)
+    print(f"  [{smi}] headline --matmul-precision default / bfloat16: cuBLAS "
+          f"TF32 {tf32}; pred_cls vs float64 at bfloat16 max abs err "
+          f"{max(f64):.3e}, per batch {[float(f'{e:.3e}') for e in f64]}")
+    phases.check(all(torch.equal(a, b) for a, b in zip(cls["default"],
+                                                       cls["bfloat16"])),
+                 "--matmul-precision bfloat16 gives pred_cls bit-equal to "
+                 "default on the headline")
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -2364,6 +2683,8 @@ def main() -> int:
     print("phase: the host side at full width")
     check_host_side(flash, phases, records, train_videos, val_videos,
                     opts.seed, smi)
+    print("phase: the motion head (cross-attention) at full width")
+    motion_launches = check_motion(flash, phases, records, opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
@@ -2390,6 +2711,10 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "launches_anchor_free": {
                 path: counts[name] for path, counts in af_launches.items()},
+            "launches_motion": {
+                encoder: c["counts"][name] if name != "flash_attention_fwd"
+                else c["by_head_dim"].get(128, 0)
+                for encoder, c in motion_launches.items()},
             "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
                         "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
@@ -2400,8 +2725,11 @@ def main() -> int:
     lg = head_launches[f"anchor-based attention {LG}"]["by_head_dim"]
     for d, label, used, by_path, extra in (
             (512, "head dim 512 local", lg.get(512, 0),
-             {path: c["by_head_dim"].get(512, 0)
-              for path, c in head_launches.items()},
+             {**{path: c["by_head_dim"].get(512, 0)
+                 for path, c in head_launches.items()},
+              **{f"motion head, {encoder} encoder":
+                 c["by_head_dim"].get(512, 0)
+                 for encoder, c in motion_launches.items()}},
              "head dim 512"),
             (256, "head dim 256",
              af_launches["deep"]["by_head_dim"].get(256, 0),

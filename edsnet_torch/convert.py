@@ -4,6 +4,10 @@
 The port's submodules carry the flax module names, so a variable path maps
 to a state_dict key by joining with dots, and only the leaves change:
 - Dense ``kernel`` (in, out) <-> Linear ``weight`` (out, in), transposed;
+- a 3-D DenseGeneral ``kernel`` (flax MHA's ``query`` / ``key`` /
+  ``value`` [in, H, D] and ``out`` [H, D, F]) <-> a ``weight`` of the same
+  layout, not transposed, and its ``bias`` ([H, D] or [F]) <-> ``bias``
+  (models/mha.py:DenseGeneral);
 - LayerNorm ``scale`` <-> ``weight``;
 - ``bias`` <-> ``bias``;
 - any other param leaf (``res_conv``, ``proj_k``, ``proj_v``,
@@ -17,9 +21,9 @@ to a state_dict key by joining with dots, and only the leaves change:
   kernels stacked in gate order i, f, g, o and transposed, ``weight_hh_l0``
   the hidden ones, ``bias_hh_l0`` their biases, ``bias_ih_l0`` zero (into
   flax it is added to the hidden bias).
-A 2-D ``weight`` is a Linear kernel and a 1-D one a LayerNorm scale, and a
-buffer's leaf name is one of ``CONSTANT_LEAVES``, which makes the map
-invertible.
+A 2-D ``weight`` is a Linear kernel, a 3-D one a DenseGeneral kernel and a
+1-D one a LayerNorm scale, and a buffer's leaf name is one of
+``CONSTANT_LEAVES``, which makes the map invertible.
 """
 from __future__ import annotations
 
@@ -90,7 +94,7 @@ def flax_to_state_dict(variables: Mapping[str, Any]
                                  f"{'/'.join(prefix + (name,))} is not in "
                                  f"the collection the bridge maps it from")
             if name == "kernel":
-                name, arr = "weight", arr.T
+                name, arr = "weight", (arr.T if arr.ndim == 2 else arr)
             elif name == "scale":
                 name = "weight"
             out[".".join(prefix + (name,))] = torch.tensor(
@@ -116,8 +120,11 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]
             continue
         collection = "constants" if leaf in CONSTANT_LEAVES else "params"
         if leaf == "weight":
-            leaf, arr = ("kernel", arr.T.copy()) if arr.ndim == 2 \
-                else ("scale", arr)
+            if arr.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf, arr = "kernel", (arr.T.copy() if arr.ndim == 2
+                                       else arr)
         node = variables.setdefault(collection, {})
         for part in path:
             node = node.setdefault(part, {})

@@ -7,7 +7,9 @@ negative and incomplete candidates, for the anchor-free head the distances
 to the segment's ends and their centerness.  Only the anchor-based random
 negative and incomplete sampling runs per step, on the device
 (parallel/steps.py).  Batches are videos of one length bucket (a multiple
-of ``bucket_size``) padded to a common length, with masks.
+of ``bucket_size``) padded to a common length, with masks, and, for the
+motion head, the videos' motion features padded to a multiple of 16 rows
+with their own mask.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ class TrainItem:
     # anchor-free labels
     af_loc: Optional[np.ndarray] = None         # [N, 2] float32
     af_ctr: Optional[np.ndarray] = None         # [N] float32
+    # motion features, for the cross-attention head
+    motion: Optional[np.ndarray] = None         # [M, Fm]
 
 
 def make_target(record: VideoRecord) -> Optional[np.ndarray]:
@@ -102,7 +106,8 @@ def prepare_ab_item(record: VideoRecord, anchor_scales: Sequence[int],
     return TrainItem(key=record.key, seq=record.seq, target=target,
                      cls_pos=cls_pos.astype(np.int32),
                      loc_label=loc_label[:n], neg_eligible=neg_eligible,
-                     inc_eligible=inc_eligible, num_pos=int(cls_pos.sum()))
+                     inc_eligible=inc_eligible, num_pos=int(cls_pos.sum()),
+                     motion=record.motion_features)
 
 
 def prepare_af_item(record: VideoRecord) -> Optional[TrainItem]:
@@ -112,15 +117,19 @@ def prepare_af_item(record: VideoRecord) -> Optional[TrainItem]:
         return None
     loc = af_ops.get_loc_label_np(target)
     return TrainItem(key=record.key, seq=record.seq, target=target,
-                     af_loc=loc, af_ctr=af_ops.get_ctr_label_np(target, loc))
+                     af_loc=loc, af_ctr=af_ops.get_ctr_label_np(target, loc),
+                     motion=record.motion_features)
 
 
 def prepare_items(records: Sequence[VideoRecord], kind: str,
                   anchor_scales: Sequence[int] = (), pos_iou: float = 0.6,
                   neg_iou: float = 0.0, inc_iou: float = 0.3,
-                  bucket_size: int = 64) -> List[TrainItem]:
+                  bucket_size: int = 64,
+                  need_motion: bool = True) -> List[TrainItem]:
     """Labels for every record (a list or a ``VideoDataset``); skipped
-    videos are left out."""
+    videos are left out.  ``need_motion`` is whether the model reads
+    motion: False drops the records' motion features, so that a model
+    without motion trains on an h5 that has them."""
     items = []
     for i in range(len(records)):
         record = records[i]
@@ -130,6 +139,8 @@ def prepare_items(records: Sequence[VideoRecord], kind: str,
         else:
             item = prepare_af_item(record)
         if item is not None:
+            if not need_motion:
+                item.motion = None
             items.append(item)
     return items
 
@@ -175,6 +186,23 @@ def batch_items(items: List[TrainItem], batch_size: int, bucket_size: int,
             yield _stack_chunk(group[i:i + batch_size], blen, pad_batch_to)
 
 
+def _stack_motion(motions: List[np.ndarray], b_pad: int):
+    """(motion [b_pad, M, Fm] float32, motion_mask [b_pad, M]): M is the
+    longest rounded up to 16, and the rows past the videos are empty; the
+    train and the eval batches share it."""
+    m_len = -(-max(m.shape[0] for m in motions) // 16) * 16
+    arrs = [_pad_to(np.asarray(m, np.float32), m_len) for m in motions]
+    arrs += [np.zeros_like(arrs[0])] * (b_pad - len(motions))
+    mmask = [np.arange(m_len) < m.shape[0] for m in motions]
+    mmask += [np.zeros(m_len, bool)] * (b_pad - len(motions))
+    return np.stack(arrs), np.stack(mmask)
+
+
+def _missing_motion(keys: List[str]) -> ValueError:
+    return ValueError(f"motion_features missing for {keys[:3]} — a "
+                      f"cross-attention model needs motion for every video")
+
+
 def _stack_chunk(chunk: List[TrainItem], blen: int,
                  pad_batch_to: int) -> Dict[str, np.ndarray]:
     b = len(chunk)
@@ -204,6 +232,14 @@ def _stack_chunk(chunk: List[TrainItem], blen: int,
     if chunk[0].af_loc is not None:
         batch["af_loc"] = stack(lambda it: it.af_loc, np.float32)
         batch["af_ctr"] = stack(lambda it: it.af_ctr, np.float32)
+    motions = [it.motion for it in chunk]
+    if any(m is not None for m in motions):
+        # all or nothing per chunk, as resolve_build_motion on the eval
+        # side: which videos share a chunk depends on the epoch's shuffle
+        missing = [it.key for it, m in zip(chunk, motions) if m is None]
+        if missing:
+            raise _missing_motion(missing)
+        batch["motion"], batch["motion_mask"] = _stack_motion(motions, b_pad)
     return batch
 
 
@@ -218,3 +254,18 @@ def pool_items(items: List[TrainItem], bucket_size: int
         buckets.setdefault(blen, []).append(item)
     return [_stack_chunk(group, blen, pad_batch_to=1)
             for blen, group in sorted(buckets.items())]
+
+
+def resolve_build_motion(chunk: List[VideoRecord],
+                         need_motion: Optional[bool]) -> bool:
+    """Whether to build motion arrays for an eval chunk: never when
+    ``need_motion`` is False (the model reads no motion), always when True
+    (raising unless every record has motion), and when None as the data
+    say, all or nothing."""
+    has_motion = [r.motion_features is not None for r in chunk]
+    if need_motion is False:
+        return False
+    if not all(has_motion) and (need_motion or any(has_motion)):
+        raise _missing_motion([r.key for r, h in zip(chunk, has_motion)
+                               if not h])
+    return has_motion[0]

@@ -1,7 +1,8 @@
 """Evaluation: checkpoint -> predict -> NMS -> keyshot summary -> F-score,
 per split, on the device evaluator (parallel/eval_device.py) or on the host.
 
-Counterpart of edsnet_tpu/evaluate.py: ``main``, ``eval_fold_from_checkpoint``,
+Counterpart of edsnet_tpu/evaluate.py: ``main``, ``eval_fold_from_checkpoint``
+(the h5 read, then ``eval_checkpoint`` on the videos in memory),
 the host ``evaluate`` (``--host-eval``; predict and NMS on the device,
 shared with the device evaluator as ``predict_nms``, then the kept boxes
 sorted by score, rasterised and packed on the host) and ``KnapsackAudit``
@@ -30,7 +31,9 @@ from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.native import load as _native_load
 from edsnet_torch.ops import summary as summ_ops
 from edsnet_torch.parallel.eval_device import (_device_of, _num_scales_of,
+                                               checkpoint_motion_width,
                                                evaluate_on_device,
+                                               model_needs_motion,
                                                predict_nms,
                                                prepare_eval_batches,
                                                summary_diversity)
@@ -59,20 +62,14 @@ def _todo(flag, item):
 
 
 def check_supported(args) -> None:
-    """Raise for model, precision and device-layout flags that no CLI of
-    this port serves yet."""
+    """Raise for the device-layout flags that no CLI of this port serves
+    yet."""
     if args.context_parallel:
         _todo("--context-parallel", 13)
     if args.tensor_parallel > 1:
         _todo("--tensor-parallel", 13)
     if args.num_devices > 1:
         _todo("--num-devices > 1", 13)
-    if args.model == "anchor-based" and args.model_depth == "cross-attention":
-        # the motion head; anchor-free has no such depth (get_model's
-        # ValueError, as in JAX)
-        _todo("--model-depth cross-attention", 10)
-    if args.matmul_precision == "bfloat16":
-        _todo("--matmul-precision bfloat16", 14)
 
 
 # the train CLI serves the same flags as the evaluate CLI
@@ -80,8 +77,11 @@ check_train_supported = check_supported
 
 
 # --matmul-precision values that allow TF32 (JAX's jax_default_matmul_
-# precision on the GPU); float32, highest and no flag keep full f32
-TF32_PRECISIONS = ("tensorfloat32", "high", "default")
+# precision on the GPU); float32, highest and no flag keep full f32.
+# JAX maps "bfloat16" to Precision.DEFAULT, the entry of "default"
+# (jax._src.lax.lax._precision_strings), so on the GPU it is TF32 too:
+# its one bf16 pass exists only on a TPU
+TF32_PRECISIONS = ("tensorfloat32", "high", "default", "bfloat16")
 
 
 def setup(args, check=check_supported) -> torch.device:
@@ -152,7 +152,8 @@ def predict_batches(model, prepared: List[Dict], nms_thresh: float):
     padding rows included."""
     num_scales = _num_scales_of(model)
     pending = [(predict_nms(model, e["tb"]["seq"], e["tb"]["mask"],
-                            e["tb"]["lens"], num_scales, nms_thresh),
+                            e["tb"]["lens"], num_scales, nms_thresh,
+                            e["tb"].get("motion"), e["tb"].get("motion_mask")),
                 e["records"]) for e in prepared]
     return [tuple(t.cpu().numpy() for t in out) + (records,)
             for out, records in pending]
@@ -206,7 +207,8 @@ def evaluate(model, records: List[VideoRecord], nms_thresh: float,
     ``evaluate_on_device``'s does."""
     if prepared is None:
         prepared = prepare_eval_batches(records, batch_size, bucket_size,
-                                        _device_of(model))
+                                        _device_of(model),
+                                        model_needs_motion(model))
     return summarize_host(predict_batches(model, prepared, nms_thresh),
                           knapsack_audit, per_video)
 
@@ -255,16 +257,36 @@ def eval_fold_from_checkpoint(args, model, split_path, fold_idx: int,
                               test_keys, eval_fn=evaluate_on_device,
                               **eval_kwargs):
     """Restore one fold's checkpoint into ``model`` and evaluate it on its
-    test keys with ``eval_fn`` (the device evaluator, or the host
-    ``evaluate``) -> ``(fscore, diversity)``."""
-    ckpt_path = get_ckpt_path(args.model_dir, split_path, fold_idx)
-    ckpt_lib.load_checkpoint(model, ckpt_path)
-    model.eval()
+    test keys, read from the h5 files (``eval_checkpoint``) ->
+    ``(fscore, diversity)``."""
     val_set = VideoDataset(test_keys, args.data_root)
     try:
         records = [val_set[i] for i in range(len(val_set))]
     finally:
         val_set.close()
+    return eval_checkpoint(args, model,
+                           get_ckpt_path(args.model_dir, split_path,
+                                         fold_idx),
+                           records, eval_fn, **eval_kwargs)
+
+
+def eval_checkpoint(args, model, ckpt_path, records: List[VideoRecord],
+                    eval_fn=evaluate_on_device, **eval_kwargs):
+    """Restore the checkpoint at ``ckpt_path`` into ``model`` and evaluate
+    it on ``records`` with ``eval_fn`` (the device evaluator, or the host
+    ``evaluate``) -> ``(fscore, diversity)``.  A motion head takes the
+    checkpoint's motion width, and raises if the videos' differs."""
+    ckpt_lib.load_checkpoint(model, ckpt_path)
+    model.eval()
+    if model_needs_motion(model):
+        # a clear message instead of a shape error in the key projection
+        widths = {r.motion_features.shape[-1] for r in records
+                  if r.motion_features is not None}
+        w_ckpt = checkpoint_motion_width(model.state_dict())
+        if widths and widths != {w_ckpt}:
+            raise ValueError(
+                f"h5 motion_features are {sorted(widths)}-wide but the "
+                f"checkpoint's cross-attention expects width {w_ckpt}")
     return eval_fn(model, records, args.nms_thresh,
                    batch_size=max(args.batch_size, 1),
                    bucket_size=args.bucket_size, **eval_kwargs)

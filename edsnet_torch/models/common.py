@@ -6,8 +6,10 @@ xavier-uniform with gain sqrt(2) on every Linear weight, constant 0.1 bias,
 LayerNorm weight 1 and bias 0 with eps 1e-5.  A module with raw parameters
 or buffers of its own (the nystromformer's ``res_conv``, Linformer's
 ``proj_k`` / ``proj_v``, the DWT net's transposed conv, Performer's
-``projection``, the LSTM cells, the GCN's ``bias``) draws them in its
-``init_leaves(generator)``.
+``projection``, the LSTM cells, the GCN's ``bias``, the DenseGeneral
+projections of the motion head's attentions) draws them in its
+``init_leaves(generator)``.  Those projections keep flax MHA's own
+defaults, not the trainer's re-init: ``lecun_normal_flat_`` and zero bias.
 
 Dtypes follow JAX's promotion, not torch's refusals: a product or a norm
 whose operands differ (float32 activations meeting bfloat16 weights under
@@ -77,6 +79,21 @@ def xavier2_flax_(param: torch.Tensor, generator: torch.Generator
     r = math.prod(param.shape[:-2])
     return xavier2_(param, generator, param.shape[-2] * r,
                     param.shape[-1] * r)
+
+
+def lecun_normal_flat_(param: torch.Tensor, generator: torch.Generator,
+                       n_in: int) -> torch.Tensor:
+    """In place flax's ``lecun_normal`` (``variance_scaling(1, fan_in,
+    truncated_normal)``) on a DenseGeneral kernel whose first ``n_in``
+    dimensions are contracted: fan_in is their product, as flax draws the
+    flat (prod(in), prod(out)) kernel and reshapes it.  The normal is cut
+    at 2 of its own sigma, and sigma is sqrt(1 / fan_in) over the std of
+    the unit normal cut there (0.8796...), so the draws' std is
+    sqrt(1 / fan_in)."""
+    std = math.sqrt(1.0 / math.prod(param.shape[:n_in])) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(param, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

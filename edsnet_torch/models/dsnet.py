@@ -1,13 +1,14 @@
 """Anchor-based DSNet heads, batched + masked: shallow (ROI, flat, FFT or
-DWT pooling), original, deep and local-global.
+DWT pooling), original, deep, local-global and the motion head
+(cross-attention over motion features).
 
 Counterpart of edsnet_tpu/models/dsnet.py: ``_decode_predictions``,
 ``_FcTrunk`` (weight-tied by default), ``_AnchorHeads`` (its fused
 formulations, the ones JAX's CLIs run), ``DSNet``, ``DSNetOriginal``,
-``DSNetDeepAttention`` and ``DSNetMultiAttention`` (the motion head,
-``DSNetMotionFeatures``, is not ported: ROADMAP Queue A item 10).
-Submodule names follow the flax param tree so the weight bridge
-(convert.py) maps names one to one.
+``DSNetDeepAttention``, ``DSNetMultiAttention``,
+``_CrossAttentionDecoderLayer`` and ``DSNetMotionFeatures``.  Submodule
+names follow the flax param tree so the weight bridge (convert.py) maps
+names one to one.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from torch import nn
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import (Dropout, FcBlock, LayerNorm, Linear,
                                         apply_mask, promote)
-from edsnet_torch.models.encoder import LocalGlobalEncoder
+from edsnet_torch.models.encoder import ClassicEncoder, LocalGlobalEncoder
+from edsnet_torch.models.mha import DenseGeneral, MultiHeadDotProductAttention
 from edsnet_torch.models.poolings import Pooling, roi_multi_scale
 from edsnet_torch.ops.anchors import anchor_scales_list, get_anchors
 
@@ -248,3 +250,128 @@ class DSNetMultiAttention(_AnchorBased):
         out = x + self.multiattentionblock(x, mask)
         out = apply_mask(self.trunk(out), mask)
         return self.heads.fused_roi(out, self.scales)
+
+
+class _CrossAttentionDecoderLayer(nn.Module):
+    """torch's post-norm ``TransformerDecoderLayer`` as JAX writes it:
+    self-attention, cross-attention over the memory, a ReLU feed-forward,
+    each added back and normalised (``norm1``..``norm3``), with dropout on
+    each branch and inside the feed-forward.  ``memory_features`` is the
+    memory's width, which the cross-attention's key and value read."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 memory_features: int, dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = MultiHeadDotProductAttention(nhead, d_model)
+        self.cross_attn = MultiHeadDotProductAttention(nhead, d_model,
+                                                       memory_features)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.ff1 = Linear(d_model, dim_feedforward)
+        self.ff2 = Linear(dim_feedforward, d_model)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_mask: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        sa = self.self_attn(tgt, tgt, tgt_mask)
+        tgt = self.norm1(tgt + self.dropout(sa))
+        ca = self.cross_attn(tgt, memory, memory_mask)
+        tgt = self.norm2(tgt + self.dropout(ca))
+        ff = self.ff2(self.dropout(torch.relu(self.ff1(tgt))))
+        return self.norm3(tgt + self.dropout(ff))
+
+
+class DSNetMotionFeatures(_AnchorBased):
+    """The appearance encoder (``classic``: backbone, residual, fc1;
+    ``local-global``: 4 segments, 2 local heads), ``attention_depth``
+    decoder layers (8 heads, d_model and the feed-forward both F) that
+    cross-attend to the motion features, added to the encoder's output,
+    LayerNorm, fcb1 -> fcb2 -> ReLU -> Dropout(0.5) -> fcb_norm, the mask,
+    and the ROI heads.  ``fc_cls`` and ``fc_loc`` sit at the top level, as
+    flax's ``nn.share_scope`` puts them; ``fused_roi_head=False`` runs the
+    reference's pool-then-project oracle.  ``motion_width`` is the motion
+    features' width (F when None), which torch needs at build time."""
+
+    def __init__(self, base_model: str, num_feature: int, num_hidden: int,
+                 anchor_scales: Sequence[int], num_head: int,
+                 attention_depth: int, encoder_type: str = "classic",
+                 use_pallas: Optional[bool] = None,
+                 orientation: str = "paper", fused_roi_head: bool = True,
+                 motion_width: Optional[int] = None):
+        super().__init__()
+        self.scales = anchor_scales_list(anchor_scales)
+        self.fused_roi_head = fused_roi_head
+        if encoder_type == "classic":
+            self.encoder = ClassicEncoder(base_model, num_feature, num_head,
+                                          orientation, use_pallas)
+        else:
+            self.encoder = LocalGlobalEncoder(
+                base_model, orientation, num_feature, num_head,
+                num_segments=4, local_attention_head=2,
+                use_pallas=use_pallas)
+        width = num_feature if motion_width is None else motion_width
+        self.decoders = [_CrossAttentionDecoderLayer(
+            num_feature, 8, num_feature, width)
+            for _ in range(attention_depth)]
+        for i, layer in enumerate(self.decoders):
+            self.add_module(f"decoder_{i}", layer)
+        self.layer_norm = LayerNorm(num_feature)
+        self.fcb1 = Linear(num_feature, num_hidden)
+        self.fcb2 = Linear(num_hidden, num_hidden)
+        self.dropout = Dropout(0.5)
+        self.fcb_norm = LayerNorm(num_hidden)
+        self.fc_cls = Linear(num_hidden, 1)
+        self.fc_loc = Linear(num_hidden, 2)
+
+    @property
+    def motion_width(self) -> int:
+        """The motion width the cross-attentions read (the input width of
+        their key projection)."""
+        return self.decoders[0].cross_attn.key.in_shape[0] if self.decoders \
+            else 0
+
+    def set_motion_width(self, width: int) -> None:
+        """Rebuild every cross-attention's key and value projection at
+        motion width ``width`` (undrawn; a checkpoint load fills them), on
+        the parameters' device."""
+        if width == self.motion_width:
+            return
+        device = self.fcb1.weight.device
+        for layer in self.decoders:
+            heads = layer.cross_attn.key.out_shape
+            layer.cross_attn.key = DenseGeneral((width,), heads).to(device)
+            layer.cross_attn.value = DenseGeneral((width,), heads).to(device)
+
+    def forward(self, x: torch.Tensor, motion: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                motion_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, N, F], motion [B, M, Fm], mask [B, N] and motion_mask
+        [B, M] bool -> (cls [B, N, S], loc [B, N, S, 2])."""
+        out = self.encoder(x, mask)
+        dec = out
+        for layer in self.decoders:
+            dec = layer(dec, motion, mask, motion_mask)
+        out = self.layer_norm(out + dec)
+        h = torch.relu(self.fcb2(self.fcb1(out)))
+        h = apply_mask(self.fcb_norm(self.dropout(h)), mask)
+        if self.fused_roi_head:
+            # fc_cls / fc_loc are this module's own, as share_scope makes
+            # them in flax: _AnchorHeads' fused formulation reads only those
+            return _AnchorHeads.fused_roi(self, h, self.scales)
+        pooled = roi_multi_scale(h, self.scales)             # [B, N, S, H]
+        return torch.sigmoid(self.fc_cls(pooled)[..., 0]), self.fc_loc(pooled)
+
+    def predict(self, x: torch.Tensor, motion: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                motion_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Deterministic forward + anchor decode, JAX's argument order;
+        needs eval mode."""
+        if self.training:
+            raise RuntimeError("DSNetMotionFeatures.predict is the "
+                               "deterministic pass: call model.eval() first")
+        pred_cls, pred_loc = self(x, motion, mask, motion_mask)
+        return _decode_predictions(pred_cls, pred_loc, self.scales)

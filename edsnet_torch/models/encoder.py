@@ -1,9 +1,9 @@
-"""The local-global encoder: a global attention plus one local attention
-per contiguous segment of each video.
+"""The motion head's encoders: the classic one (backbone, residual, fc)
+and the local-global one (a global attention plus one local attention per
+contiguous segment of each video).
 
-Counterpart of edsnet_tpu/models/encoder.py:MultiAttention and
-LocalGlobalEncoder (the motion head's ClassicEncoder is not ported: ROADMAP
-Queue A item 10).  Submodule names follow the flax param tree so the
+Counterpart of edsnet_tpu/models/encoder.py:ClassicEncoder, MultiAttention
+and LocalGlobalEncoder.  Submodule names follow the flax param tree so the
 weight bridge (convert.py) maps names one to one.
 """
 from __future__ import annotations
@@ -15,6 +15,23 @@ from torch import nn
 
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import LayerNorm, Linear, l2_normalize
+
+
+class ClassicEncoder(nn.Module):
+    """fc1(x + base_model(x)): the reference's intent (its forward reads
+    ``out`` before assigning it), as in JAX."""
+
+    def __init__(self, base_model: str, num_feature: int, num_head: int,
+                 orientation: str = "paper",
+                 use_pallas: Optional[bool] = None):
+        super().__init__()
+        self.base_model = build_base_model(base_model, num_feature, num_head,
+                                           use_pallas, orientation)
+        self.fc1 = Linear(num_feature, num_feature)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return self.fc1(x + self.base_model(x, mask))
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,20 @@
 """Model registry: name + depth -> head module.
 
 Counterpart of edsnet_tpu/models/model_zoo.py:get_model, get_anchor_based
-and get_anchor_free.  Both factories build every depth but
-``cross-attention`` (the motion head, ROADMAP Queue A item 10).
+and get_anchor_free.  Both factories build every depth of JAX's: the
+anchor-based one also ``cross-attention`` (the motion head, built at
+``motion_width``, the motion features' width, which torch needs at build
+time and flax read at init; F when None), the anchor-free one has no such
+depth, as in JAX.
 
 ``--untie-fc-blocks`` does not reach the model, as in the reference, whose
 factories never pass ``tie_fc_blocks`` to a head: the CLIs build the tied
 trunk whatever the flag says, and say so in the log.  Untied blocks exist
 at the module level (``DSNet(tie_fc_blocks=False)``, likewise the other
 heads with a trunk).  ``--pooling-type`` reaches only the anchor-based
-shallow head, and ``--attention-depth`` only the anchor-based deep one, as
-in JAX; the anchor-free factory takes neither, nor ``--anchor-scales``.
+shallow head, ``--attention-depth`` only the anchor-based deep and motion
+heads and ``--encoder-type`` only the motion head, as in JAX; the
+anchor-free factory takes none of them, nor ``--anchor-scales``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional
 from torch import nn
 
 from edsnet_torch.models.dsnet import (DSNet, DSNetDeepAttention,
+                                       DSNetMotionFeatures,
                                        DSNetMultiAttention, DSNetOriginal)
 from edsnet_torch.models.dsnet_af import (DSNetAF, DSNetAFDeepAttention,
                                           DSNetAFMultiAttention,
@@ -29,9 +34,6 @@ logger = logging.getLogger(__name__)
 
 MODEL_DEPTHS = ("shallow", "deep", "local-global-attention", "original",
                 "cross-attention")
-UNPORTED_DEPTH = ("--model-depth cross-attention is not ported yet "
-                  "(ROADMAP.md Queue A item 10: motion batching, "
-                  "DSNetMotionFeatures, ClassicEncoder)")
 
 
 def _log_untie(untie_fc_blocks: bool) -> None:
@@ -43,13 +45,15 @@ def _log_untie(untie_fc_blocks: bool) -> None:
 
 def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
                      num_head, fc_depth, pooling_type, model_depth="shallow",
-                     attention_depth: int = 2,
+                     attention_depth: int = 2, encoder_type: str = "classic",
                      use_pallas: Optional[bool] = None,
                      orientation: str = "paper", untie_fc_blocks=False,
+                     motion_width: Optional[int] = None,
                      **kwargs) -> nn.Module:
     """``use_pallas``: the --use-pallas / --no-pallas tri-state (None =
     auto), see models/base.py; ``orientation``: the fourier backbone's
-    --fft-attention-orientation; ``untie_fc_blocks`` is only logged."""
+    --fft-attention-orientation; ``untie_fc_blocks`` is only logged;
+    ``motion_width``: the motion head's motion width (F when None)."""
     _log_untie(untie_fc_blocks)
     if model_depth == "shallow":
         return DSNet(base_model, num_feature, num_hidden, anchor_scales,
@@ -67,7 +71,10 @@ def get_anchor_based(base_model, num_feature, num_hidden, anchor_scales,
         return DSNetOriginal(base_model, num_feature, num_hidden,
                              anchor_scales, num_head, use_pallas)
     if model_depth == "cross-attention":
-        raise NotImplementedError(UNPORTED_DEPTH)
+        return DSNetMotionFeatures(base_model, num_feature, num_hidden,
+                                   anchor_scales, num_head, attention_depth,
+                                   encoder_type, use_pallas, orientation,
+                                   motion_width=motion_width)
     raise ValueError(f"Invalid model depth {model_depth}")
 
 

@@ -6,16 +6,19 @@ Counterpart of edsnet_tpu/parallel/eval_device.py: ``batch_eval_device``
 vmapped; its predict, clip, round and NMS are ``predict_nms``, which the
 host evaluator in evaluate.py shares), ``_num_scales_of``,
 ``eval_fscore_device`` and ``evaluate_on_device``, on one device and without
-a mesh, for both heads.  Diversity is computed on the host from the
+a mesh, for both heads, and ``model_needs_motion`` and
+``checkpoint_motion_width`` for the motion head, whose eval batches carry
+the videos' motion features.  Diversity is computed on the host from the
 returned summaries.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from edsnet_torch.data.batching import _stack_motion, resolve_build_motion
 from edsnet_torch.data.dataset import VideoRecord
 from edsnet_torch.ops import summary as summ_ops
 from edsnet_torch.ops.bbox import nms_masked
@@ -26,15 +29,19 @@ def _round_up(x: int, m: int) -> int:
 
 
 def batch_eval_device(records: List[VideoRecord], batch_size: int,
-                      bucket_size: int) -> Iterator[Dict]:
+                      bucket_size: int, need_motion: Optional[bool] = None
+                      ) -> Iterator[Dict]:
     """Pad records into eval batches of numpy arrays.
 
     Per batch: seq [B,L,F], mask [B,L], lens [B], picks [B,L],
     cps [B,S,2], nfps [B,S], seg_valid [B,S], n_frames [B],
-    user_summary [B,U,Fr], user_valid [B,U], is_avg [B] (tvsum metric).
-    Sequences bucket to multiples of max(bucket_size, 256), shots to 16,
-    frames to 4096 and users to 4; a ragged final chunk pads with empty
-    rows (``records`` keeps the real ones).
+    user_summary [B,U,Fr], user_valid [B,U], is_avg [B] (tvsum metric),
+    and motion [B,M,Fm] with motion_mask [B,M] where
+    ``data/batching.py:resolve_build_motion`` says (``need_motion``: what
+    the model reads, None to follow the data).  Sequences bucket to
+    multiples of max(bucket_size, 256), shots to 16, frames to 4096, users
+    to 4 and motion rows to 16; a ragged final chunk pads with empty rows
+    (``records`` keeps the real ones).
     """
     seq_gran = max(bucket_size, 256)
     buckets: Dict[int, List[VideoRecord]] = {}
@@ -104,17 +111,26 @@ def batch_eval_device(records: List[VideoRecord], batch_size: int,
                         r.user_summary[:, :fr_max] > 0.5
                     out["user_valid"][j, :u] = True
                 out["is_avg"][j] = "tvsum" in r.key
+            if resolve_build_motion(chunk, need_motion):
+                out["motion"], out["motion_mask"] = _stack_motion(
+                    [r.motion_features for r in chunk], b)
             yield out
 
 
 @torch.inference_mode()
 def predict_nms(model, seq: torch.Tensor, mask: torch.Tensor,
-                lens: torch.Tensor, num_scales: int, nms_thresh: float):
-    """Predict a padded batch, clip each box to its video's length, round
-    it, and run the masked NMS per row -> (pred_cls [B, T], boxes [B, T, 2]
+                lens: torch.Tensor, num_scales: int, nms_thresh: float,
+                motion: Optional[torch.Tensor] = None,
+                motion_mask: Optional[torch.Tensor] = None):
+    """Predict a padded batch (the motion head with its ``motion`` and
+    ``motion_mask``), clip each box to its video's length, round it, and
+    run the masked NMS per row -> (pred_cls [B, T], boxes [B, T, 2]
     float32, keep [B, T] bool), T = positions x scales.  The host evaluator
     and ``_eval_batch_device`` share it."""
-    pred_cls, boxes = model.predict(seq, mask)
+    if motion is None:
+        pred_cls, boxes = model.predict(seq, mask)
+    else:
+        pred_cls, boxes = model.predict(seq, motion, mask, motion_mask)
     total = pred_cls.shape[1]
     positions = torch.arange(total, device=pred_cls.device) // num_scales
     valid = positions[None, :] < lens[:, None]
@@ -128,9 +144,9 @@ def _eval_batch_device(model, batch: Dict[str, torch.Tensor],
                        num_scales: int, nms_thresh: float, frame_bucket: int,
                        uniform_rate: int = 0):
     """One padded batch -> (fscores [B], summaries [B, frame_bucket])."""
-    pred_cls, boxes_c, keep = predict_nms(model, batch["seq"], batch["mask"],
-                                          batch["lens"], num_scales,
-                                          nms_thresh)
+    pred_cls, boxes_c, keep = predict_nms(
+        model, batch["seq"], batch["mask"], batch["lens"], num_scales,
+        nms_thresh, batch.get("motion"), batch.get("motion_mask"))
     n = pred_cls.shape[1] // num_scales
     device = pred_cls.device
 
@@ -170,17 +186,37 @@ def summary_diversity(summary: np.ndarray, seq: np.ndarray) -> float:
 
 
 def prepare_eval_batches(records: List[VideoRecord], batch_size: int,
-                         bucket_size: int,
-                         device: torch.device | str) -> List[Dict]:
-    """Pad and upload eval batches once, for reuse across evaluations."""
+                         bucket_size: int, device: torch.device | str,
+                         need_motion: Optional[bool] = None) -> List[Dict]:
+    """Pad and upload eval batches once, for reuse across evaluations;
+    ``need_motion`` as ``batch_eval_device``'s."""
     prepared = []
-    for batch in batch_eval_device(records, batch_size, bucket_size):
+    for batch in batch_eval_device(records, batch_size, bucket_size,
+                                   need_motion):
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
               if isinstance(v, np.ndarray)}
         prepared.append({"tb": tb, "frame_bucket": batch["frame_bucket"],
                          "uniform_rate": batch["uniform_rate"],
                          "records": batch["records"]})
     return prepared
+
+
+def model_needs_motion(model) -> bool:
+    """Whether ``model`` reads motion features (the motion head): what
+    the trainer and the evaluators gate the motion batching on."""
+    from edsnet_torch.models.dsnet import DSNetMotionFeatures
+    return isinstance(model, DSNetMotionFeatures)
+
+
+def checkpoint_motion_width(state_dict: Mapping[str, torch.Tensor]) -> int:
+    """The motion width a motion checkpoint's state_dict was trained at:
+    the input width of its cross-attention key projection, whose weight
+    keeps flax's [in, H, D] layout."""
+    for key, tensor in state_dict.items():
+        if key.endswith("cross_attn.key.weight"):
+            return int(tensor.shape[0])
+    raise ValueError("no cross_attn projection in the checkpoint — not a "
+                     "motion (cross-attention) model?")
 
 
 def _device_of(model) -> torch.device:
@@ -223,7 +259,8 @@ def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
     num_scales = _num_scales_of(model)
     if prepared is None:
         prepared = prepare_eval_batches(records, batch_size, bucket_size,
-                                        _device_of(model))
+                                        _device_of(model),
+                                        model_needs_motion(model))
 
     # launch every batch first and fetch once
     pending = []

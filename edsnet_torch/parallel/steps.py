@@ -12,8 +12,9 @@ package's step does.
 ``compute_dtype="bfloat16"`` is JAX's mixed precision: the forward runs
 on a bfloat16 copy of the float parameters (buffers, like Performer's
 ``projection``, stay float32, as JAX's ``constants`` do) and on the input
-cast to bfloat16, its outputs are cast to float32, and the gradients reach
-the float32 masters through the cast; losses and Adam stay float32.
+(and the motion head's motion features) cast to bfloat16, its outputs are
+cast to float32, and the gradients reach the float32 masters through the
+cast; losses and Adam stay float32.
 Products whose operands end up mixed run in float32, as in JAX
 (models/common.py:promote).  ``remat`` recomputes the forward in the
 backward (``torch.utils.checkpoint``), replaying the dropout generators'
@@ -122,25 +123,34 @@ def _dropout_replay(model: nn.Module):
 
 
 def train_forward(model: nn.Module, x: torch.Tensor, mask: torch.Tensor,
-                  remat: bool = False, compute_dtype: str = "float32"
+                  remat: bool = False, compute_dtype: str = "float32",
+                  motion: Optional[torch.Tensor] = None,
+                  motion_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, ...]:
-    """The model's outputs on (x, mask) in float32, computed in
-    ``compute_dtype`` and recomputed in the backward if ``remat``."""
+    """The model's outputs on (x, mask), or on (x, motion, mask,
+    motion_mask) for the motion head, in float32, computed in
+    ``compute_dtype`` and recomputed in the backward if ``remat`` (the
+    motion features are an input of the recomputed function, as in
+    JAX's jax.checkpoint)."""
     dtype = getattr(torch, compute_dtype)
 
-    def run(x):
+    def run(x, motion):
+        if dtype != torch.float32:
+            x = x.to(dtype)
+            motion = None if motion is None else motion.to(dtype)
+        inputs = (x, mask) if motion is None else (x, motion, mask,
+                                                   motion_mask)
         if dtype == torch.float32:
-            out = model(x, mask)
+            out = model(*inputs)
         else:
             params = {n: p.to(dtype) if p.is_floating_point() else p
                       for n, p in model.named_parameters()}
-            out = torch.func.functional_call(model, params,
-                                             (x.to(dtype), mask))
+            out = torch.func.functional_call(model, params, inputs)
         return tuple(t.to(torch.float32) for t in out)
 
     if not remat:
-        return run(x)
-    return checkpoint(run, x, use_reentrant=False,
+        return run(x, motion)
+    return checkpoint(run, x, motion, use_reentrant=False,
                       context_fn=_dropout_replay(model))
 
 
@@ -166,8 +176,9 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     denom = torch.clamp(w.sum(), min=1.0)
 
     model.train()
-    pred_cls, pred_loc = train_forward(model, batch["seq"], batch["mask"],
-                                       remat, compute_dtype)
+    pred_cls, pred_loc = train_forward(
+        model, batch["seq"], batch["mask"], remat, compute_dtype,
+        batch.get("motion"), batch.get("motion_mask"))
     loc = L.ab_loc_loss(pred_loc, batch["loc_label"], cls_label)
     cls = L.ab_cls_loss(pred_cls, cls_label)
     loss = ((cls + lambda_reg * loc) * w).sum() / denom

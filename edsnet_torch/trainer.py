@@ -22,6 +22,9 @@ Counterpart of edsnet_tpu/trainer.py:train, without a mesh:
   (every eval epoch on the host path), every ``--state-save-every`` epochs
   and at the end, and the best F-score it records never runs ahead of the
   checkpoint on disk;
+- the motion head (``--model-depth cross-attention``) is built at the
+  width of the training videos' motion features, which every training
+  video must have; a model without motion drops them from its batches;
 - ``--profile`` traces epoch 1 with ``torch.profiler`` into
   ``{model_dir}/profile`` and waits for the device after every step, so the
   frames/s it logs are fenced.
@@ -45,6 +48,7 @@ from edsnet_torch.evaluate import check_train_supported, evaluate, setup
 from edsnet_torch.models.common import init_weights, set_dropout_generator
 from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.parallel.eval_device import (eval_fscore_device,
+                                               model_needs_motion,
                                                prepare_eval_batches)
 from edsnet_torch.parallel.steps import (ab_train_step, af_train_step,
                                          make_optimizer)
@@ -95,13 +99,13 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         logger.info(f"compute dtype: {compute_dtype} "
                     f"(--compute-dtype float32 to opt out)")
     model = get_model(args.model, **vars(args))
-    init_weights(model, torch.Generator().manual_seed(args.seed))
-    model = model.to(device)
+    need_motion = model_needs_motion(model)
 
     items = batching.prepare_items(
         train_videos, args.model, anchor_scales=args.anchor_scales,
         pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
-        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size)
+        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size,
+        need_motion=need_motion)
     skipped = len(train_videos) - len(items)
     if skipped:
         logger.info(f"skipped {skipped} videos (NaN gtscore / empty target)")
@@ -109,8 +113,19 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         raise ValueError(
             "no trainable videos: every video was skipped (NaN gtscore or "
             "empty keyshot target at the 15% budget)")
+    if need_motion:
+        missing = [it.key for it in items if it.motion is None]
+        if missing:
+            raise ValueError(
+                f"model-depth cross-attention needs 'motion_features' in "
+                f"the h5 for every video; missing for {missing[:3]}...")
+        # the data's motion width, which flax reads at init
+        model.set_motion_width(items[0].motion.shape[-1])
+    init_weights(model, torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
     prepared_eval = prepare_eval_batches(
-        list(val_videos), max(args.batch_size, 1), args.bucket_size, device)
+        list(val_videos), max(args.batch_size, 1), args.bucket_size, device,
+        need_motion)
 
     rng = np.random.RandomState(args.seed)
     generators = {

@@ -6,7 +6,9 @@ a torch ``state_dict``.  ``load_checkpoint`` reads either that or a flax
 msgpack checkpoint written by edsnet_tpu (the variables dict, ``params`` and
 ``constants``, as msgpack maps, each array an ext type 1 holding ``(shape,
 dtype name, C-order bytes)``), which goes through the weight bridge.
-``msgpack`` is imported only for the latter.
+``msgpack`` is imported only for the latter.  The shapes come from the
+file where flax's restore takes them from it: a motion head is rebuilt at
+the checkpoint's motion width before the load, whatever it was built at.
 
 ``save_train_state`` / ``load_train_state`` / ``restore_np_rng`` keep the
 resumable train state at ``{checkpoint}.state`` in ``torch.save`` format:
@@ -119,7 +121,8 @@ def read_flax_msgpack(data: bytes) -> Dict[str, Any]:
 
 def load_checkpoint(model: nn.Module, path) -> nn.Module:
     """Load a torch or flax checkpoint into ``model`` (strict), on the
-    device of the model's parameters."""
+    device of the model's parameters; a motion head takes the
+    checkpoint's motion width (``set_motion_width``)."""
     data = Path(path).read_bytes()
     device = next(model.parameters()).device
     if data[:2] == b"PK":  # torch.save's zip container
@@ -127,5 +130,8 @@ def load_checkpoint(model: nn.Module, path) -> nn.Module:
                                 weights_only=True)
     else:
         state_dict = flax_to_state_dict(read_flax_msgpack(data))
+    if getattr(model, "motion_width", 0):     # a motion head with decoders
+        from edsnet_torch.parallel.eval_device import checkpoint_motion_width
+        model.set_motion_width(checkpoint_motion_width(state_dict))
     model.load_state_dict(state_dict, strict=True)
     return model

@@ -140,8 +140,7 @@ def test_evaluate_cli_reads_jax_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--context-parallel", "2"], ["--tensor-parallel", "2"],
-    ["--num-devices", "2"], ["--matmul-precision", "bfloat16"], ["--model-depth", "cross-attention"],
-    ["--model-depth", "cross-attention", "--encoder-type", "local-global"]])
+    ["--num-devices", "2"]])
 def test_unserved_flags_raise(flags):
     args = port_evaluate.config_lib.get_arguments(
         ["anchor-based", "--device", "cpu", *flags])
@@ -180,4 +179,5 @@ def test_port_imports_no_jax():
         "ops.depthwise_conv", "models.fnet", "models.performer",
         "models.linformer", "models.dwt_net", "ops.dwt", "models.lstm",
         "models.gcn", "native", "ops.kts", "data.h5io", "make_shots",
-        "kts_demo")} <= imported
+        "kts_demo", "models.mha", "model_info", "make_split",
+        "sweep")} <= imported

@@ -149,10 +149,11 @@ def test_dsnet_padded_equals_unpadded(n_real):
 
 
 def test_unported_options_raise():
-    """Only the motion head (cross-attention) is left unported; a window
-    pooling at more than one anchor scale is refused, as JAX asserts."""
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        get_model("anchor-based", model_depth="cross-attention", **SMALL)
+    """No depth is left unported (the motion head, cross-attention, was
+    the last); a window pooling at more than one anchor scale is refused,
+    as JAX asserts."""
+    model = get_model("anchor-based", model_depth="cross-attention", **SMALL)
+    assert type(model).__name__ == "DSNetMotionFeatures"
     for pooling in ("dwt", "fft", "flat-pooling"):
         with pytest.raises(ValueError, match="single scale"):
             get_model("anchor-based", **{**SMALL, "pooling_type": pooling})

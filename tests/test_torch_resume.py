@@ -24,8 +24,11 @@ from edsnet_torch.utils import checkpoint as ckpt_lib
 
 def _make_mock_h5(tmp_path):
     """tests/test_resume.py's data: 3 videos, 16-d unit features, 10 equal
-    shots; 2 train keys and 1 test key."""
+    shots; 2 train keys and 1 test key; and 24-wide motion features, one
+    row per position, from a stream of their own (the heads without motion
+    ignore them)."""
     rng = np.random.RandomState(0)
+    motion_rng = np.random.RandomState(1)
     with h5py.File(tmp_path / "mock_tvsum.h5", "w") as f:
         for i, n_seq in enumerate([20, 24, 28]):
             n_frames = n_seq * 15
@@ -39,6 +42,8 @@ def _make_mock_h5(tmp_path):
             g["n_frames"] = n_frames
             g["picks"] = np.arange(n_seq, dtype=np.int32) * 15
             g["user_summary"] = (rng.rand(2, n_frames) > 0.8).astype(
+                np.float32)
+            g["motion_features"] = motion_rng.randn(n_seq, 24).astype(
                 np.float32)
     keys = [f"d/mock_tvsum.h5/video_{i}" for i in range(3)]
     split_path = tmp_path / "mock.yml"
@@ -56,6 +61,9 @@ HEADS = {
     "anchor-based attention": ["anchor-based", "--base-model", "attention",
                                "--anchor-scales", "4"],
     "anchor-free attention": ["anchor-free", "--base-model", "attention"],
+    "motion head": ["anchor-based", "--model-depth", "cross-attention",
+                    "--base-model", "attention", "--anchor-scales", "4",
+                    "--attention-depth", "1"],
 }
 
 
@@ -85,8 +93,10 @@ def test_resume_continues_training(tmp_path):
 
 @pytest.mark.parametrize("head,extra", [
     ("anchor-based attention", ()), ("anchor-free attention", ()),
-    ("anchor-based attention", ("--host-eval",))],
-    ids=["anchor-based", "anchor-free", "anchor-based-host-eval"])
+    ("anchor-based attention", ("--host-eval",)),
+    ("motion head", ("--host-eval",))],
+    ids=["anchor-based", "anchor-free", "anchor-based-host-eval",
+         "motion-head-host-eval"])
 def test_resume_matches_uninterrupted(tmp_path, head, extra):
     """2 epochs + resume to 4 equals an uninterrupted 4-epoch run bit for
     bit: the anchor-based step draws from the label generator, the
@@ -223,7 +233,7 @@ def test_mid_cadence_save_never_outruns_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("head", ["anchor-based attention",
-                                  "anchor-free attention"])
+                                  "anchor-free attention", "motion head"])
 def test_host_eval_training_matches_device_path(tmp_path, head):
     split = load_yaml(_make_mock_h5(tmp_path))[0]
     dev = trainer.train(_args(tmp_path, "d", 4, head, extra=()), split,

@@ -71,7 +71,7 @@ def tf32_switches():
 @pytest.mark.parametrize("precision,tf32", [
     (None, False), ("float32", False), ("highest", False),
     ("tensorfloat32", True), ("high", True), ("default", True),
-    ("bfloat16", None)])
+    ("bfloat16", True)])
 def test_matmul_precision_sets_tf32(precision, tf32, tf32_switches):
     flags = [] if precision is None else ["--matmul-precision", precision]
     for check in (port_evaluate.check_supported,
@@ -79,11 +79,6 @@ def test_matmul_precision_sets_tf32(precision, tf32, tf32_switches):
         args = get_arguments(["anchor-based", "--device", "cpu", *flags])
         torch.backends.cuda.matmul.allow_tf32 = not tf32
         torch.backends.cudnn.allow_tf32 = not tf32
-        if tf32 is None:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md Queue A item 14"):
-                port_evaluate.setup(args, check)
-            continue
         port_evaluate.setup(args, check)
         assert torch.backends.cuda.matmul.allow_tf32 is tf32
         assert torch.backends.cudnn.allow_tf32 is tf32

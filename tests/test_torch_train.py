@@ -148,16 +148,17 @@ def test_dropout_follows_its_generator():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model-depth", "cross-attention"], ["--matmul-precision", "bfloat16"],
     ["--num-devices", "2"], ["--tensor-parallel", "2"]])
 def test_train_flags_not_served_raise(flags):
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_evaluate.setup(args, port_evaluate.check_train_supported)
-    # every other depth and pooling is served, on either head
+    # every depth, pooling and precision is served, on either head
     for extra in (["--model-depth", "deep"], ["--model-depth", "original"],
                   ["--model-depth", "local-global-attention"],
-                  ["--pooling-type", "flat-pooling"]):
+                  ["--model-depth", "cross-attention"],
+                  ["--pooling-type", "flat-pooling"],
+                  ["--matmul-precision", "bfloat16"]):
         for model in ("anchor-based", "anchor-free"):
             port_evaluate.check_train_supported(get_arguments(
                 [model, "--device", "cpu", *extra]))

@@ -18,7 +18,6 @@ from edsnet_tpu.ops import summary as jax_summary
 from edsnet_tpu.parallel import steps as jax_steps
 from edsnet_torch.data import batching
 from edsnet_torch.data.dataset import VideoRecord
-from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.ops import anchors, bbox, knapsack, losses, summary
 from edsnet_torch.parallel import steps
 
@@ -189,11 +188,6 @@ def test_skipped_videos_and_nan():
         [VideoRecord(**r) for r in (nan_rec, good, empty_rec)],
         "anchor-free")
     assert [it.key for it in af_items] == [good["key"]]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 10"):
-        get_model("anchor-based", base_model="linear", num_feature=16,
-                  num_hidden=8, num_head=2, fc_depth=1, anchor_scales=[4],
-                  pooling_type="roi", model_depth="cross-attention")
 
 
 def test_batches_and_pools_match_jax():
