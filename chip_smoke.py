@@ -162,11 +162,24 @@ Phases, each of which must pass (exit code 1 otherwise):
    bucket at f32, bf16 and --remat (the remat step's parameters within
    1e-6 of the plain one's); --matmul-precision bfloat16 bit-equal to
    default (TF32) on the headline, with its gap to float64; predict, eval
-   and step times and peak memory.
+   and step times and peak memory;
+15. the video pipeline on the card after decode and resize (cv2 and PIL
+   are host code): GoogLeNet pool5, ConvNeXt-Base and Swin-V2-B at full
+   architecture with seeded random weights under torchvision's names, at
+   JAX's parameter counts (5,599,904, 87,564,416, 86,905,848), a [32, 3,
+   224, 224] batch within 1e-4 of float64 (L2-normalised, TF32 off; the
+   TF32 gap printed), ms per frame at batch 1 and 32; the infer path on a
+   video of 2100 sampled positions made on the card: GoogLeNet features,
+   KTS on the card equal to the native host's, infer.summarize_video on
+   the CLI default model and the motion head (classic encoder), each
+   through a saved checkpoint, bit-equal summaries on the kernel and dense
+   routes with 1 and 0 forward launches; the conv3d motion net on [4, 8,
+   112, 112, 3] clips within 1e-4 of float64; times of each stage.
 
 The last lines are a JSON object describing each kernel (``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
-evaluate paths, ``launches_motion`` on each of phase 14's, and
+evaluate paths, ``launches_motion`` on each of phase 14's,
+``launches_by_path`` on each of phase 15's infer paths, and
 flash_fwd_cluster_kernel as two entries: head dim 512 at (8, 576, 512)
 with its launches on phase 12's anchor-based local-global evaluation and
 phase 14's, and head dim 256 at (16, 2304, 256) with its
@@ -2486,6 +2499,283 @@ def check_motion(flash, phases: Phases, records, seed: int,
     return launched
 
 
+# phase 15: the video pipeline after decode and resize, and the frame CNNs
+# torchvision's counts without the classifier, as jax.eval_shape counts
+# edsnet_tpu's flax modules at 224 x 224 (GoogLeNet also holds 14,560 BN
+# statistics)
+CNN_PARAMS = {"google-net": 5_599_904, "convnext": 87_564_416,
+              "swin-transformer": 86_905_848}
+VIDEO_POSITIONS = 2100        # the longest synthetic video, at rate 15
+VIDEO_RATE = 15
+DEFAULT_PARAMS = 4_344_707    # the CLI default model (JAX's count)
+
+
+def scene_frames(n: int, seed: int, device: torch.device):
+    """[n, 3, 224, 224] preprocessed frames of a synthetic video made on
+    the card: scenes of 20 to 140 positions, each a seeded low-frequency
+    pattern with its own amplitude and per-channel offset, each frame that
+    plus N(0, 0.1^2) noise -> (frames, the true cuts in positions)."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(seed)
+    lens = []
+    while sum(lens) < n:
+        lens.append(int(rng.randint(20, 141)))
+    lens[-1] -= sum(lens) - n
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = len(lens)
+    base = F.interpolate(torch.randn(k, 3, 7, 7, generator=g, device=device),
+                         size=(224, 224), mode="bilinear",
+                         align_corners=False)
+    base = (base * (0.5 + torch.rand(k, 1, 1, 1, generator=g, device=device))
+            + 3.0 * torch.rand(k, 3, 1, 1, generator=g, device=device) - 1.5)
+    scene = torch.from_numpy(np.repeat(np.arange(k), lens)).to(device)
+    frames = base[scene] + 0.1 * torch.randn(n, 3, 224, 224, generator=g,
+                                             device=device)
+    return frames, np.cumsum(lens)[:-1]
+
+
+def f64_gaps(model, x: torch.Tensor, tf32: bool = False):
+    """max |f32 - f64| of the L2-normalised outputs of ``model`` on ``x``
+    against a float64 copy of it on the card, with TF32 off, and with it
+    on if ``tf32`` (else None)."""
+    import copy
+
+    from edsnet_torch.data.video import l2_normalize_rows
+    from edsnet_torch.evaluate import set_tf32
+
+    with torch.inference_mode():
+        want = l2_normalize_rows(copy.deepcopy(model).double()(x.double()))
+        gaps = []
+        for on in (False, True)[:1 + tf32]:
+            set_tf32(on)
+            gaps.append(float((l2_normalize_rows(model(x)).double()
+                               - want).abs().max()))
+        set_tf32(False)
+    return gaps[0], (gaps[1] if tf32 else None)
+
+
+def check_video_pipeline(flash, phases: Phases, seed: int,
+                         smi: str) -> Dict[str, dict]:
+    """Phase 15, the video pipeline on the card after decode and resize
+    (cv2 and PIL are host code, absent on the card machine):
+    (a) GoogLeNet pool5, ConvNeXt-Base and Swin-V2-B at full architecture
+        with seeded random weights under torchvision's names
+        (models/common.py:randomize_cnn_): JAX's parameter counts; a
+        [32, 3, 224, 224] batch made on the card -> [32, 1024], the
+        L2-normalised features with TF32 off within 1e-4 of the module in
+        float64 on the card, the TF32 gap beside it; ms per frame at batch
+        1 (JAX's per-frame run) and 32, peak memory;
+    (b) the infer path at full width: one video of 2100 sampled positions
+        (31,500 frames at rate 15), its frames made on the card, through
+        GoogLeNet (the default extractor, data/video.py:FrameCNNExtractor,
+        32 frames a forward) and the L2 normalisation, with BN statistics
+        fitted to a sample of the video (a trained extractor's statistics
+        fit its inputs; drawn ones make every pooled feature nearly the
+        same); KTS through h5io.segment_features on the card
+        (--device-kts) and on the native host DP, equal change points;
+        then infer.summarize_video on the CLI default model (4,344,707
+        parameters) and on the motion head (classic encoder,
+        --attention-depth 2, motion width 1024, 26,398,595; seeded
+        unit-norm motion rows), each through a port-saved checkpoint and
+        load_checkpoint, on the kernel route and the dense route: bit-equal
+        summaries, 1 forward launch (head dim 128) on the kernel route and
+        0 on the dense; ms of the features, KTS (both routes), predict+NMS
+        and the summary;
+    (c) data/motion.py's Conv3DMotionNet at full width on a [4, 8, 112,
+        112, 3] clip batch: f32 within 1e-4 of float64 (L2-normalised);
+        ms per clip.
+    Returns, per infer path, the launch counts of its kernel route."""
+    from edsnet_torch import config as config_lib
+    from edsnet_torch import infer
+    from edsnet_torch.data import h5io
+    from edsnet_torch.data.motion import Conv3DMotionNet
+    from edsnet_torch.data.video import FrameCNNExtractor, frame_cnn
+    from edsnet_torch.evaluate import set_tf32, setup
+    from edsnet_torch.models.common import randomize_cnn_
+    from edsnet_torch.models.model_zoo import get_model
+    from edsnet_torch.ops import kts
+    from edsnet_torch.ops import summary as summ_ops
+    from edsnet_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    set_tf32(False)
+
+    # (a) the three CNNs
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(32, 3, 224, 224, generator=g, device=device)
+    cnns = {}
+    for kind, want_params in CNN_PARAMS.items():
+        model, _ = frame_cnn(kind)
+        randomize_cnn_(model, torch.Generator().manual_seed(seed))
+        model = model.to(device).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        stats = sum(b.numel() for name, b in model.named_buffers()
+                    if name.endswith(("running_mean", "running_var")))
+        phases.check(n_params == want_params,
+                     f"{kind}: {n_params} parameters (JAX's {want_params})")
+        if kind == "google-net":
+            phases.check(stats == 14_560,
+                         f"{kind}: {stats} BN statistics (JAX's 14560)")
+        with torch.inference_mode():
+            out = model(x)
+        phases.check(tuple(out.shape) == (32, 1024)
+                     and bool(torch.isfinite(out).all()),
+                     f"{kind}: [32, 1024] finite features")
+        err, err_tf32 = f64_gaps(model, x, tf32=True)
+        phases.check(err <= TOL, f"{kind}: L2-normalised features within "
+                                 f"1e-4 of float64 ({err:.3e}; TF32 "
+                                 f"{err_tf32:.3e})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms1 = cuda_ms(lambda: model(x[:1]), iters=20)
+            ms32 = cuda_ms(lambda: model(x), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cnns[kind] = {"params": n_params, "f64_err": err,
+                      "tf32_err": err_tf32, "ms_frame_b1": ms1,
+                      "ms_frame_b32": ms32 / 32, "peak_gib": peak}
+        print(f"  [{smi}] {kind}: ms per frame {ms1:.4f} at batch 1, "
+              f"{ms32 / 32:.4f} at batch 32; peak {peak:.2f} GiB")
+        del model
+        torch.cuda.empty_cache()
+
+    # (b) the infer path: features, KTS on both routes, summaries
+    n = VIDEO_POSITIONS
+    n_frames = n * VIDEO_RATE
+    frames, cuts = scene_frames(n, seed, device)
+    cnn, _ = frame_cnn("google-net")
+    randomize_cnn_(cnn, torch.Generator().manual_seed(seed))
+    cnn = cnn.to(device)
+    for m in cnn.modules():           # fit the BN statistics to the video
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    cnn.train()
+    with torch.no_grad():
+        cnn(frames[::33])
+    extractor = FrameCNNExtractor(cnn, device)
+    extractor.features(frames[:64])                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = extractor.features(frames).cpu().numpy()
+    ms_features = (time.perf_counter() - t0) * 1e3
+    del frames
+    torch.cuda.empty_cache()
+    phases.check(feats.shape == (n, 1024) and bool(np.isfinite(feats).all())
+                 and bool(np.allclose(np.linalg.norm(feats, axis=-1), 1.0,
+                                      atol=1e-5)),
+                 f"features [{n}, 1024], finite, unit norm")
+    scene = np.repeat(np.arange(len(cuts) + 1), np.diff(np.r_[0, cuts, n]))
+    off_scene = (feats @ feats.T)[scene[:, None] != scene[None, :]]
+    print(f"  {len(cuts) + 1} scenes; cosine between scenes mean "
+          f"{off_scene.mean():.4f} max {off_scene.max():.4f}")
+    calls = kts.cpd_auto_device.device_calls
+    t0 = time.perf_counter()
+    dev = h5io.segment_features(feats, VIDEO_RATE, n_frames, device=device)
+    ms_kts_device = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = h5io.segment_features(feats, VIDEO_RATE, n_frames)
+    ms_kts_host = (time.perf_counter() - t0) * 1e3
+    phases.check(kts.cpd_auto_device.device_calls == calls + 1,
+                 "KTS ran on the card (no float64 fallback)")
+    phases.check(all(np.array_equal(a, b) for a, b in zip(dev, host)),
+                 f"KTS change points equal on the card and the host "
+                 f"({len(host[0])} shots; {len(cuts)} true cuts, "
+                 f"{len(set(host[0][1:, 0]) & set(cuts * VIDEO_RATE))} "
+                 f"found)")
+    cps, nfps, picks = host
+
+    rng = np.random.RandomState(seed)
+    motion = rng.randn(n, 1024).astype(np.float32)
+    motion /= np.linalg.norm(motion, axis=-1, keepdims=True)
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, flags, want_params, mot in (
+                ("infer, anchor-based attention (CLI default)", [],
+                 DEFAULT_PARAMS, None),
+                ("infer, motion head classic encoder",
+                 ["--model-depth", "cross-attention"],
+                 MOTION_PARAMS["classic"], motion)):
+            args = config_lib.get_arguments(
+                ["anchor-based", *flags, "--seed", str(seed)])
+            setup(args)
+            path = Path(tmp) / "model.pt"
+            save_checkpoint(seeded_model(args, device), path)
+            summaries = {}
+            for route, use_pallas in (("kernel", None), ("dense", False)):
+                model = get_model(args.model,
+                                  **{**vars(args), "use_pallas": use_pallas})
+                model = load_checkpoint(model.to(device), path).eval()
+                n_params = sum(p.numel() for p in model.parameters())
+                if route == "kernel":
+                    phases.check(n_params == want_params,
+                                 f"{label}: {n_params} parameters (JAX's "
+                                 f"{want_params})")
+                infer.kept_boxes(model, feats, args.nms_thresh,
+                                 args.bucket_size, mot)     # warm-up
+                torch.cuda.synchronize()
+                reset_launches(flash)
+                t0 = time.perf_counter()
+                summ = infer.summarize_video(
+                    model, feats, cps, n_frames, nfps, picks,
+                    args.nms_thresh, bucket_size=args.bucket_size,
+                    motion=mot)
+                ms_total = (time.perf_counter() - t0) * 1e3
+                counts = {"counts": launch_counts(flash),
+                          "by_head_dim": dict(
+                              flash.flash_attention_fwd.launches_by_head_dim)}
+                # its stages, outside the counted run
+                t0 = time.perf_counter()
+                scores, boxes = infer.kept_boxes(
+                    model, feats, args.nms_thresh, args.bucket_size, mot)
+                t1 = time.perf_counter()
+                summ_ops.bbox2summary(n, scores, boxes, cps, n_frames, nfps,
+                                      picks)
+                t2 = time.perf_counter()
+                summaries[route] = summ
+                fwd = counts["counts"]["flash_attention_fwd"]
+                want = 1 if route == "kernel" else 0
+                phases.check(fwd == want == sum(counts["counts"].values())
+                             and counts["by_head_dim"].get(128, 0) == want,
+                             f"{label}, {route} route: {fwd} forward "
+                             f"launches per video ({want}, head dim 128), "
+                             f"no backward launch")
+                if route == "kernel":
+                    launched[label] = counts
+                print(f"  [{smi}] {label}, {route} route: summarize_video "
+                      f"{ms_total:.1f} ms; timed apart, predict+NMS "
+                      f"{(t1 - t0) * 1e3:.1f} ms ({len(scores)} kept "
+                      f"boxes), summary {(t2 - t1) * 1e3:.1f} ms; "
+                      f"{int(summ.sum())}/{n_frames} frames kept")
+                del model
+            phases.check(np.array_equal(summaries["kernel"],
+                                        summaries["dense"])
+                         and 0 < summaries["kernel"].sum()
+                         <= 0.15 * n_frames,
+                         f"{label}: summaries bit-equal on the kernel and "
+                         f"dense routes")
+    print(f"  [{smi}] infer path at {n} positions: features "
+          f"{ms_features:.1f} ms ({ms_features / n:.4f} per frame), KTS "
+          f"card {ms_kts_device:.1f} ms, host {ms_kts_host:.1f} ms")
+
+    # (c) the conv3d motion net
+    net = Conv3DMotionNet(seed=seed, device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    clips = torch.rand(4, 8, 112, 112, 3, generator=g, device=device)
+    err, _ = f64_gaps(net.net, clips)
+    phases.check(err <= TOL, f"conv3d motion net: L2-normalised features "
+                             f"within 1e-4 of float64 ({err:.3e})")
+    with torch.inference_mode():
+        ms4 = cuda_ms(lambda: net.net(clips), iters=10)
+        ms1 = cuda_ms(lambda: net.net(clips[:1]), iters=10)
+    print(f"  [{smi}] conv3d motion net: ms per clip {ms4 / 4:.4f} at "
+          f"batch 4, {ms1:.4f} at batch 1")
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -2685,6 +2975,8 @@ def main() -> int:
                     opts.seed, smi)
     print("phase: the motion head (cross-attention) at full width")
     motion_launches = check_motion(flash, phases, records, opts.seed, smi)
+    print("phase: the video pipeline and the frame CNNs at full width")
+    infer_launches = check_video_pipeline(flash, phases, opts.seed, smi)
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
@@ -2715,6 +3007,10 @@ def main() -> int:
                 encoder: c["counts"][name] if name != "flash_attention_fwd"
                 else c["by_head_dim"].get(128, 0)
                 for encoder, c in motion_launches.items()},
+            "launches_by_path": {
+                path: c["counts"][name] if name != "flash_attention_fwd"
+                else c["by_head_dim"].get(128, 0)
+                for path, c in infer_launches.items()},
             "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
                         "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)

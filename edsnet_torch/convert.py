@@ -24,6 +24,12 @@ to a state_dict key by joining with dots, and only the leaves change:
 A 2-D ``weight`` is a Linear kernel, a 3-D one a DenseGeneral kernel and a
 1-D one a LayerNorm scale, and a buffer's leaf name is one of
 ``CONSTANT_LEAVES``, which makes the map invertible.
+
+The frame CNNs and the conv3d motion net do not carry flax names: their
+modules keep torchvision's ``state_dict`` names, and
+``flax_to_torch_cnn`` inverts each JAX ``convert_torch_state_dict``
+(models/googlenet.py, convnext.py, swin.py) and maps the flax tree of
+JAX's ``data/motion.py`` net.
 """
 from __future__ import annotations
 
@@ -142,3 +148,155 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
     """state_dict -> nested flax params of numpy arrays (buffers of the
     ``constants`` collection left out)."""
     return state_dict_to_variables(state_dict)["params"]
+
+
+def _t(arr, *perm) -> torch.Tensor:
+    arr = np.asarray(arr)
+    return torch.tensor(np.ascontiguousarray(arr.transpose(*perm)
+                                             if perm else arr))
+
+
+def _conv(node) -> Dict[str, torch.Tensor]:
+    """A flax Conv -> torch's [O, I, kh, kw] (or 3-D) weight and bias."""
+    kernel = np.asarray(node["kernel"])
+    perm = (kernel.ndim - 1, kernel.ndim - 2) + tuple(range(kernel.ndim - 2))
+    out = {"weight": _t(kernel, *perm)}
+    if "bias" in node:
+        out["bias"] = _t(node["bias"])
+    return out
+
+
+def _dense(node) -> Dict[str, torch.Tensor]:
+    out = {"weight": _t(node["kernel"], 1, 0)}
+    if "bias" in node:
+        out["bias"] = _t(node["bias"])
+    return out
+
+
+def _norm(node) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(node["scale"]), "bias": _t(node["bias"])}
+
+
+def _googlenet_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """Inverse of JAX's googlenet ``convert_torch_state_dict``: flax
+    ``branch2_0`` is torch's ``branch2.0``; BN ``scale`` / ``bias`` /
+    ``mean`` / ``var`` are ``weight`` / ``bias`` / ``running_mean`` /
+    ``running_var``, and ``num_batches_tracked`` is 0."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, stats, path):
+        if "conv" in node and "bn" in node:
+            prefix = ".".join(path)
+            out[f"{prefix}.conv.weight"] = _conv(node["conv"])["weight"]
+            for k, v in _norm(node["bn"]).items():
+                out[f"{prefix}.bn.{k}"] = v
+            out[f"{prefix}.bn.running_mean"] = _t(stats["bn"]["mean"])
+            out[f"{prefix}.bn.running_var"] = _t(stats["bn"]["var"])
+            out[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+            return
+        for name, sub in node.items():
+            walk(sub, stats[name], path + (name.replace("_", "."),))
+
+    walk(variables["params"], variables["batch_stats"], ())
+    return out
+
+
+def _convnext_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """Inverse of JAX's convnext ``convert_torch_state_dict``."""
+    from edsnet_torch.models.convnext import DEPTHS
+
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, leaves):
+        out.update({f"{prefix}.{k}": v for k, v in leaves.items()})
+
+    put("features.0.0", _conv(params["stem_conv"]))
+    put("features.0.1", _norm(params["stem_norm"]))
+    for s, depth in enumerate(DEPTHS):
+        fi = 2 * s + 1
+        if s > 0:
+            put(f"features.{fi - 1}.0", _norm(params[f"down{s}_norm"]))
+            put(f"features.{fi - 1}.1", _conv(params[f"down{s}_conv"]))
+        for b in range(depth):
+            block = params[f"stage{s}_block{b}"]
+            pre = f"features.{fi}.{b}"
+            put(f"{pre}.block.0", _conv(block["dwconv"]))
+            put(f"{pre}.block.2", _norm(block["norm"]))
+            put(f"{pre}.block.3", _dense(block["pw1"]))
+            put(f"{pre}.block.5", _dense(block["pw2"]))
+            out[f"{pre}.layer_scale"] = _t(
+                np.asarray(block["layer_scale"]).reshape(-1, 1, 1))
+    return out
+
+
+def _swin_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """Inverse of JAX's swin ``convert_torch_state_dict``, with the
+    attention buffers recomputed (models/swin.py)."""
+    from edsnet_torch.models.swin import (DEPTHS, WINDOW,
+                                          relative_coords_table,
+                                          relative_position_index)
+
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, leaves):
+        out.update({f"{prefix}.{k}": v for k, v in leaves.items()})
+
+    table = torch.from_numpy(relative_coords_table(WINDOW)).view(
+        1, 2 * WINDOW - 1, 2 * WINDOW - 1, 2)
+    index = torch.from_numpy(relative_position_index(WINDOW)).reshape(-1)
+    put("features.0.0", _conv(params["patch_conv"]))
+    put("features.0.2", _norm(params["patch_norm"]))
+    for s, depth in enumerate(DEPTHS):
+        fi = 2 * s + 1
+        if s > 0:
+            merge = params[f"merge{s}"]
+            put(f"features.{fi - 1}.reduction", _dense(merge["reduction"]))
+            put(f"features.{fi - 1}.norm", _norm(merge["norm"]))
+        for b in range(depth):
+            block = params[f"stage{s}_block{b}"]
+            attn = block["attn"]
+            pre = f"features.{fi}.{b}"
+            put(f"{pre}.attn.qkv", _dense({"kernel": attn["qkv_kernel"],
+                                           "bias": attn["qkv_bias"]}))
+            put(f"{pre}.attn.proj", _dense({"kernel": attn["proj_kernel"],
+                                            "bias": attn["proj_bias"]}))
+            out[f"{pre}.attn.logit_scale"] = _t(
+                np.asarray(attn["logit_scale"]).reshape(-1, 1, 1))
+            put(f"{pre}.attn.cpb_mlp.0", _dense({"kernel": attn["cpb_w1"],
+                                                 "bias": attn["cpb_b1"]}))
+            put(f"{pre}.attn.cpb_mlp.2", _dense({"kernel": attn["cpb_w2"]}))
+            out[f"{pre}.attn.relative_coords_table"] = table.clone()
+            out[f"{pre}.attn.relative_position_index"] = index.clone()
+            put(f"{pre}.norm1", _norm(block["norm1"]))
+            put(f"{pre}.norm2", _norm(block["norm2"]))
+            put(f"{pre}.mlp.0", _dense(block["mlp1"]))
+            put(f"{pre}.mlp.3", _dense(block["mlp2"]))
+    put("norm", _norm(params["final_norm"]))
+    return out
+
+
+def _conv3d_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """JAX's data/motion.py net (``conv0`` .. ``conv3`` flax Conv
+    [kT, kH, kW, I, O], ``head`` Dense) -> data/motion.py's
+    ``Conv3DMotionNet`` module."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in variables["params"].items():
+        leaves = _dense(node) if name == "head" else _conv(node)
+        out.update({f"{name}.{k}": v for k, v in leaves.items()})
+    return out
+
+
+_CNN_BRIDGES = {"google-net": _googlenet_to_torch,
+                "convnext": _convnext_to_torch,
+                "swin-transformer": _swin_to_torch,
+                "conv3d": _conv3d_to_torch}
+
+
+def flax_to_torch_cnn(kind: str, variables: Mapping[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """Flax variables of a frame CNN (``kind`` a fetch_weights key:
+    google-net, convnext, swin-transformer) or of the conv3d motion net
+    (``conv3d``) -> the port module's ``state_dict`` of CPU tensors."""
+    return _CNN_BRIDGES[kind](variables)

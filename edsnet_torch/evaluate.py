@@ -56,6 +56,17 @@ def resolve_device(name: str) -> torch.device:
                      f"(choose auto, gpu or cpu)")
 
 
+def as_device(device: Optional[str | torch.device]) -> torch.device:
+    """A module's ``device=`` argument: None is ``resolve_device("auto")``
+    (the card, and a raise without one), a ``--device`` name resolves as
+    in the CLIs, anything else is a torch device."""
+    if device is None:
+        return resolve_device("auto")
+    if isinstance(device, str) and device in ("auto", "gpu", "cpu"):
+        return resolve_device(device)
+    return torch.device(device)
+
+
 def _todo(flag, item):
     raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue "
                               f"A item {item})")
@@ -92,10 +103,16 @@ def setup(args, check=check_supported) -> torch.device:
     f32 references.  The flash kernels keep their own ``precision``."""
     check(args)
     device = resolve_device(args.device)
-    tf32 = args.matmul_precision in TF32_PRECISIONS
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    set_tf32(args.matmul_precision in TF32_PRECISIONS)
     return device
+
+
+def set_tf32(enabled: bool) -> None:
+    """cuBLAS's and cuDNN's TF32 switches, both to ``enabled``; the CLIs
+    without ``--matmul-precision`` (make_dataset, data/motion.py) keep
+    full f32."""
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
 
 
 class KnapsackAudit:

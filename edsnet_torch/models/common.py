@@ -114,6 +114,40 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             sub.init_leaves(generator)
 
 
+def randomize_cnn_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights, in place, for a frame CNN where no
+    checkpoint exists (the tests, chip_smoke.py), drawn from ``generator``
+    on the CPU in ``state_dict`` order: conv and Linear weights
+    N(0, 1 / fan_in); 1-D weights (norms) 1 + N(0, 0.1^2); biases
+    N(0, 0.05^2); BatchNorm running means N(0, 0.1^2) and running
+    variances U[0.5, 1.5); ConvNeXt's ``layer_scale`` U[0.05, 0.15);
+    Swin's ``logit_scale`` U[1.5, 3).  Swin's computed buffers and BN's
+    ``num_batches_tracked`` are kept."""
+    with torch.no_grad():
+        for name, t in module.state_dict(keep_vars=True).items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("num_batches_tracked", "relative_coords_table",
+                        "relative_position_index"):
+                continue
+            shape = t.shape
+            if leaf == "running_var":
+                draw = torch.rand(shape, generator=generator) + 0.5
+            elif leaf == "layer_scale":
+                draw = 0.05 + 0.1 * torch.rand(shape, generator=generator)
+            elif leaf == "logit_scale":
+                draw = 1.5 + 1.5 * torch.rand(shape, generator=generator)
+            elif leaf == "weight" and len(shape) >= 2:
+                draw = torch.randn(shape, generator=generator) / math.sqrt(
+                    math.prod(shape[1:]))
+            elif leaf == "weight":
+                draw = 1.0 + 0.1 * torch.randn(shape, generator=generator)
+            elif leaf == "running_mean":
+                draw = 0.1 * torch.randn(shape, generator=generator)
+            else:
+                draw = 0.05 * torch.randn(shape, generator=generator)
+            t.copy_(draw)
+
+
 def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor] = None,
                    dim: int = -1) -> torch.Tensor:
     """Softmax with an optional boolean mask (False = excluded, scored at

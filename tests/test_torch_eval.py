@@ -164,7 +164,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'edsnet_tpu', 'h5py', 'yaml', 'msgpack', "
-        "'optax'))\n"
+        "'optax', 'cv2', 'PIL', 'torchvision'))\n"
         "assert not bad, bad\n"
         "print(' '.join(n for n in sys.modules if n.startswith('edsnet_torch')"
         "))\n")
@@ -180,4 +180,6 @@ def test_port_imports_no_jax():
         "models.linformer", "models.dwt_net", "ops.dwt", "models.lstm",
         "models.gcn", "native", "ops.kts", "data.h5io", "make_shots",
         "kts_demo", "models.mha", "model_info", "make_split",
-        "sweep")} <= imported
+        "sweep", "infer", "make_dataset", "fetch_weights", "data.video",
+        "data.motion", "models.googlenet", "models.convnext",
+        "models.swin")} <= imported
