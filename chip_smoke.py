@@ -174,12 +174,31 @@ Phases, each of which must pass (exit code 1 otherwise):
    the CLI default model and the motion head (classic encoder), each
    through a saved checkpoint, bit-equal summaries on the kernel and dense
    routes with 1 and 0 forward launches; the conv3d motion net on [4, 8,
-   112, 112, 3] clips within 1e-4 of float64; times of each stage.
+   112, 112, 3] clips within 1e-4 of float64; times of each stage;
+16. parallelism on the one card, at the CLI default's full width: (a) a
+   world-1 NCCL process group on cuda:0 (its TCPStore on 127.0.0.1),
+   under which 2 epochs of training (--num-devices 1 --batch-size 4) give
+   losses, best F and checkpoint tensors bit-equal to the same run without
+   a group, and evaluate's --num-devices 0 mesh the same F with 7 forward
+   launches, the all-reduces and all-gathers counted; (b) --context-
+   parallel 2 on world 1: the trainer's warning, no ring, the same F; (c)
+   --num-devices 2 and --tensor-parallel 2 raising JAX's ValueError texts;
+   (d) emulated ranks in this process, the per-rank functions of the
+   distributed route with the transport a list rotation and a sum: the
+   ring at P 2 and 4 on (4, 8, 2304, 128) with the largest eval batch's
+   key masks within 1e-5 of float64 and of the dense f32 route, and tp at
+   P 2 on the full model's predict over every eval batch, pred_cls within
+   1e-5 of max(1, |want|) of the unsharded predict with the forward
+   kernel launched once per rank per attention call; ms of each.  One
+   card cannot show NCCL across cards or the ring's real transport.
 
-The last lines are a JSON object describing each kernel (``launches`` on
+Then the count of checks passed, a ``parallel:`` line with phase 16's
+numbers, and the last lines: a JSON object describing each kernel
+(``launches`` on
 the phase 4 evaluate path, ``launches_anchor_free`` on each of phase 11's
 evaluate paths, ``launches_motion`` on each of phase 14's,
-``launches_by_path`` on each of phase 15's infer paths, and
+``launches_by_path`` on each of phase 15's infer paths,
+``launches_parallel`` on phase 16's emulated tp predict, and
 flash_fwd_cluster_kernel as two entries: head dim 512 at (8, 576, 512)
 with its launches on phase 12's anchor-based local-global evaluation and
 phase 14's, and head dim 256 at (16, 2304, 256) with its
@@ -261,8 +280,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 class Phases:
     def __init__(self):
         self.failed = []
+        self.count = 0
 
     def check(self, ok: bool, what: str) -> bool:
+        self.count += 1
         print(f"  [{'ok' if ok else 'FAIL'}] {what}")
         if not ok:
             self.failed.append(what)
@@ -2776,6 +2797,268 @@ def check_video_pipeline(flash, phases: Phases, seed: int,
     return launched
 
 
+RING_SHAPE = (4, 8, 2304, 128)   # B, H, N, D: the largest eval batch's
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_run(trainer, args, train_videos, val_videos):
+    """trainer.train_records on ``args`` -> (losses [steps], best F, F per
+    epoch, the best checkpoint's tensors)."""
+    steps = []
+    real_step = trainer.ab_train_step
+
+    def recorded(*a, **kw):
+        metrics = real_step(*a, **kw)
+        steps.append(metrics["loss"])
+        return metrics
+
+    trainer.ab_train_step = recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            best, f1s, _ = trainer.train_records(args, train_videos,
+                                                 val_videos, f"{tmp}/best.pt")
+            ckpt = torch.load(f"{tmp}/best.pt", map_location="cpu",
+                              weights_only=True)
+    finally:
+        trainer.ab_train_step = real_step
+    return torch.stack(steps).cpu(), best, f1s, ckpt
+
+
+def counted_collectives():
+    """Wrap torch.distributed's all_reduce, all_gather and broadcast with
+    call counters -> (counts, restore)."""
+    import torch.distributed as dist
+
+    counts = {}
+    saved = {}
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        real = getattr(dist, name)
+        saved[name] = real
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        setattr(dist, name, wrapped)
+
+    def restore():
+        for name, real in saved.items():
+            setattr(dist, name, real)
+
+    return counts, restore
+
+
+def check_parallel(flash, phases: Phases, records, train_videos,
+                   val_videos, seed: int, smi: str) -> Dict:
+    """Phase 16, parallelism on the one card: (a) a world-1 NCCL process
+    group under the training and evaluate paths, bit-equal to no group;
+    (b) --context-parallel 2 on world 1 (warning, no ring, same F); (c)
+    --num-devices 2 and --tensor-parallel 2 raising JAX's texts; (d) the
+    ring at P 2 and 4 and tensor parallelism at P 2 as emulated ranks in
+    this process (the per-rank functions of the distributed route, the
+    transport a list rotation and a sum) -> the phase's numbers."""
+    import logging
+
+    import torch.distributed as dist
+
+    from edsnet_torch import config as config_lib
+    from edsnet_torch import trainer
+    from edsnet_torch.evaluate import eval_mesh
+    from edsnet_torch.models import base as model_base
+    from edsnet_torch.models.common import masked_softmax
+    from edsnet_torch.parallel import ring_attention as ring
+    from edsnet_torch.parallel.eval_device import (evaluate_on_device,
+                                                   prepare_eval_batches)
+    from edsnet_torch.parallel.tensor_parallel import emulate_tp
+
+    t_phase = time.perf_counter()
+    out: Dict = {}
+    train_args = config_lib.get_arguments([
+        "anchor-based", "--seed", str(seed), "--batch-size", "4",
+        "--max-epoch", "2", "--num-devices", "1"])
+    eval_args = config_lib.get_arguments(["anchor-based", "--seed",
+                                          str(seed), "--num-devices", "0"])
+    model = seeded_model(eval_args, torch.device("cuda")).eval()
+    n_batches = len(prepare_eval_batches(records, 4, eval_args.bucket_size,
+                                         "cuda"))
+
+    def evaluation(mesh):
+        reset_launches(flash)
+        per_video = []
+        f, _ = evaluate_on_device(model, records, eval_args.nms_thresh,
+                               batch_size=4,
+                               bucket_size=eval_args.bucket_size,
+                               per_video=per_video, mesh=mesh)
+        return f, [p["fscore"] for p in per_video], \
+            flash.flash_attention_fwd.launches
+
+    ref_losses, ref_best, ref_f1s, ref_ckpt = train_run(
+        trainer, train_args, train_videos, val_videos)
+    ref_eval = evaluation(None)
+
+    # (a) a world-1 NCCL group on cuda:0, its store on this host
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    counts, restore = counted_collectives()
+    try:
+        t0 = time.perf_counter()
+        losses, best, f1s, ckpt = train_run(trainer, train_args,
+                                            train_videos, val_videos)
+        train_s = time.perf_counter() - t0
+        train_counts = dict(counts)
+        counts.clear()
+        mesh = eval_mesh(eval_args)
+        got_eval = evaluation(mesh)
+        eval_counts = dict(counts)
+    finally:
+        restore()
+    same_ckpt = (sorted(ckpt) == sorted(ref_ckpt)
+                 and all(torch.equal(ckpt[k], ref_ckpt[k]) for k in ckpt))
+    print(f"  (a) world-1 NCCL: {len(losses)} steps, {train_s:.2f} s; "
+          f"collectives in training {train_counts}, in evaluation "
+          f"{eval_counts}; best F {best:.6f} (no group {ref_best:.6f}); "
+          f"eval mesh {mesh}, F {got_eval[0]:.6f} (no group "
+          f"{ref_eval[0]:.6f}), forward launches {got_eval[2]}")
+    phases.check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+                 and train_counts.get("all_reduce", 0) > 0
+                 and eval_counts.get("all_gather", 0) > 0,
+                 "world-1 NCCL group: the train step's all-reduces and the "
+                 "evaluator's all-gathers ran through it")
+    phases.check(torch.equal(losses, ref_losses) and best == ref_best
+                 and f1s == ref_f1s and same_ckpt,
+                 "world-1 NCCL training (--num-devices 1 --batch-size 4, 2 "
+                 "epochs): losses, best F, F per epoch and every checkpoint "
+                 "tensor bit-equal to no process group")
+    phases.check(got_eval[0] == ref_eval[0] and got_eval[1] == ref_eval[1]
+                 and got_eval[2] == ref_eval[2] == n_batches,
+                 f"world-1 NCCL evaluate (--num-devices 0): F bit-equal, "
+                 f"{got_eval[2]} forward launches == {n_batches} eval "
+                 f"batches")
+
+    # (b) --context-parallel 2 on world 1: the trainer's warning, no ring
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    catch = Catch(level=logging.WARNING)
+    logging.getLogger().addHandler(catch)
+    cp_args = config_args(train_args, context_parallel=2)
+    model_base.configure_context_parallel(2, cp_args.cp_min_len)
+    calls = ring.ring_attention.calls
+    try:
+        _, cp_best, cp_f1s, _ = train_run(trainer, cp_args, train_videos,
+                                          val_videos)
+    finally:
+        logging.getLogger().removeHandler(catch)
+        model_base.set_context_parallel(0)
+    ring_calls = ring.ring_attention.calls - calls
+    print(f"  (b) --context-parallel 2: warnings {warned}; ring entered "
+          f"{ring_calls} times; best F {cp_best:.6f}")
+    phases.check(any("ring attention stays off" in w for w in warned)
+                 and ring_calls == 0 and cp_best == ref_best
+                 and cp_f1s == ref_f1s,
+                 "--context-parallel 2 on world 1: warned, ring entered 0 "
+                 "times, F per epoch equal to the run without the flag")
+
+    # (c) what the world lacks raises JAX's texts
+    for flag, want in (("num_devices", "requested 2 devices, but only 1 "
+                                       "are available"),
+                       ("tensor_parallel", "--tensor-parallel 2 must divide "
+                                           "the device count 1")):
+        try:
+            trainer.training_mesh(config_args(train_args, **{flag: 2}))
+            got = "no error"
+        except ValueError as e:
+            got = str(e)
+        phases.check(got == want, f"--{flag.replace('_', '-')} 2 on world "
+                                  f"1 raises {got!r}")
+    dist.destroy_process_group()
+
+    # (d) emulated ranks: the ring on the largest eval batch's key masks
+    mask = prepare_eval_batches(records, 4, eval_args.bucket_size,
+                                "cuda")[-1]["tb"]["mask"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    assert tuple(mask.shape) == (RING_SHAPE[0], RING_SHAPE[2])
+    key_mask = mask[:, None, None, :]
+
+    def dense(q, k, v):
+        s = torch.einsum("bhnd,bhmd->bhnm", q, k) / RING_SHAPE[3] ** 0.5
+        return torch.einsum("bhnm,bhmd->bhnd",
+                            masked_softmax(s, key_mask, dim=-1), v)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want64 = dense(q.double(), k.double(), v.double())
+            want32 = dense(q, k, v)
+            dense_ms = cuda_ms(lambda: dense(q, k, v), iters=5, warmup=1)
+            out["ring"] = {"dense_ms": dense_ms}
+            for p in (2, 4):
+                got = ring.emulate_ring(q, k, v, mask, p)
+                e64 = float((got.double() - want64).abs().max())
+                e32 = float((got - want32).abs().max())
+                ms = cuda_ms(lambda: ring.emulate_ring(q, k, v, mask, p),
+                             iters=5, warmup=1)
+                out["ring"][f"p{p}"] = {"ms": ms, "err_f64": e64,
+                                        "err_dense_f32": e32}
+                print(f"  (d) [{smi}] ring P {p} at {RING_SHAPE}: "
+                      f"{ms:.3f} ms (dense f32 {dense_ms:.3f}); max abs err "
+                      f"{e64:.3e} vs float64, {e32:.3e} vs dense f32")
+                phases.check(e64 <= 1e-5 and e32 <= 1e-5,
+                             f"emulated ring P {p}: within 1e-5 of float64 "
+                             f"and of the dense f32 route")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (d) tensor parallelism at P 2 on the full model's predict
+    prepared = prepare_eval_batches(records, 4, eval_args.bucket_size,
+                                    "cuda")
+    err, launches = 0.0, 0
+    with torch.inference_mode():
+        for entry in prepared:
+            tb = entry["tb"]
+            want, _ = model.predict(tb["seq"], tb["mask"])
+            reset_launches(flash)
+            with emulate_tp(model, 2):
+                got, _ = model.predict(tb["seq"], tb["mask"])
+            launches += flash.flash_attention_fwd.launches
+            limit = max(1.0, float(want.abs().max()))
+            err = max(err, float((got - want).abs().max()) / limit)
+        tb = prepared[-1]["tb"]
+        full_ms = cuda_ms(lambda: model.predict(tb["seq"], tb["mask"]),
+                          iters=5, warmup=1)
+        with emulate_tp(model, 2):
+            tp_ms = cuda_ms(lambda: model.predict(tb["seq"], tb["mask"]),
+                            iters=5, warmup=1)
+    out["tp"] = {"ms": tp_ms, "full_ms": full_ms, "rel_err": err,
+                 "launches": launches}
+    print(f"  (d) [{smi}] tp P 2 predict at bucket "
+          f"{int(tb['seq'].shape[1])}: {tp_ms:.3f} ms (unsharded "
+          f"{full_ms:.3f}); pred_cls max err {err:.3e} of max(1, |want|); "
+          f"forward launches {launches} over {len(prepared)} batches")
+    phases.check(err <= 1e-5, "emulated tp P 2: pred_cls within 1e-5 of "
+                              "max(1, |want|) of the unsharded predict")
+    phases.check(launches == 2 * len(prepared),
+                 f"emulated tp P 2: the forward kernel once per rank per "
+                 f"attention call ({launches} == 2 x {len(prepared)})")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def synthetic_records(seed: int, num_feature: int):
     """8 eccv16-shaped videos in memory: unit-norm features, n_frames = 15
     per position, shots of 1.5-5 s at 30 fps, users' 15% keyshot
@@ -2977,6 +3260,11 @@ def main() -> int:
     motion_launches = check_motion(flash, phases, records, opts.seed, smi)
     print("phase: the video pipeline and the frame CNNs at full width")
     infer_launches = check_video_pipeline(flash, phases, opts.seed, smi)
+    print("phase: parallelism (world-1 NCCL, emulated ring and tp ranks)")
+    parallel = check_parallel(flash, phases, records, train_videos,
+                              val_videos, opts.seed, smi)
+    print(f"checks: {phases.count - len(phases.failed)} of {phases.count} "
+          f"passed")
     if phases.failed:
         print(f"FAILED: {phases.failed}")
         return 1
@@ -3011,6 +3299,10 @@ def main() -> int:
                 path: c["counts"][name] if name != "flash_attention_fwd"
                 else c["by_head_dim"].get(128, 0)
                 for path, c in infer_launches.items()},
+            "launches_parallel": {
+                "tp 2 emulated predict, every eval batch":
+                    parallel["tp"]["launches"]
+                    if name == "flash_attention_fwd" else 0},
             "default": {"ms": t["default"]["ms"], "max_abs_err": err_default,
                         "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
@@ -3066,6 +3358,7 @@ def main() -> int:
                             "previous_ms": t["default"]["previous_ms"],
                             "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
+    print("parallel: " + json.dumps({"device": smi, **parallel}))
     print(json.dumps({"kernels": kernels,
                       "tf32_mma_tflops": timing["tf32_mma_tflops"]}))
     print(smi)

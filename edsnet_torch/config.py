@@ -1,9 +1,9 @@
 """CLI / config surface: the edsnet_tpu parser, flag for flag.
 
-Counterpart of edsnet_tpu/config.py.  Every flag parses; the evaluate entry
-point raises NotImplementedError for the ones this port does not serve yet
-(see evaluate.py:check_supported).  ``--device auto`` and ``--device gpu``
-mean CUDA, ``--device cpu`` the CPU (tests).
+Counterpart of edsnet_tpu/config.py.  Every flag parses and is served.
+``--device auto`` and ``--device gpu`` mean CUDA, ``--device cpu`` the CPU
+(tests).  The device-layout flags count the ranks that ``torchrun``
+starts, one per card (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -131,8 +131,8 @@ def get_parser() -> argparse.ArgumentParser:
                              "of this (64 aligns nystromformer landmarks "
                              "and TPU lanes)")
     parser.add_argument("--num-devices", type=int, default=0,
-                        help="data-parallel mesh size (0 = all local "
-                             "devices)")
+                        help="data-parallel mesh size in ranks (0 = every "
+                             "rank torchrun started)")
     parser.add_argument("--tensor-parallel", type=int, default=0,
                         help="shard attention heads over a 'model' mesh "
                              "axis of this size (Megatron-style, "
@@ -195,9 +195,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--context-parallel", type=int, default=0,
                         help="shard the attention backbone's sequence "
                              "axis over N devices via ring attention "
-                             "(ppermute K/V rotation + online-softmax "
+                             "(send/recv K/V rotation + online-softmax "
                              "merge) on deterministic passes; 0 = off, "
-                             "-1 = all local devices. Applies to "
+                             "-1 = all ranks. Applies to "
                              "sequences >= --cp-min-len that divide the "
                              "mesh size. Composes with --tensor-parallel "
                              "(one ('data','seq','model') mesh)")

@@ -33,25 +33,33 @@ from edsnet_torch.ops import summary as summ_ops
 from edsnet_torch.parallel.eval_device import (_device_of, _num_scales_of,
                                                checkpoint_motion_width,
                                                evaluate_on_device,
+                                               gather_rows,
                                                model_needs_motion,
                                                predict_nms,
                                                prepare_eval_batches,
                                                summary_diversity)
+from edsnet_torch.parallel.mesh import (init_distributed, is_writer,
+                                        local_rank, make_mesh, torchrun_env)
 from edsnet_torch.utils import checkpoint as ckpt_lib
 
 logger = logging.getLogger()
 
 
 def resolve_device(name: str) -> torch.device:
-    """``auto`` and ``gpu`` mean CUDA and raise without a GPU; ``cpu`` is
-    for tests."""
+    """``auto`` and ``gpu`` mean CUDA and raise without a GPU (under
+    ``torchrun``, the card ``LOCAL_RANK``, made current); ``cpu`` is for
+    tests."""
     if name == "cpu":
         return torch.device("cpu")
     if name in ("auto", "gpu"):
         if not torch.cuda.is_available():
             raise RuntimeError(f"--device {name}: no CUDA GPU found (pass "
                                f"--device cpu to run on the CPU)")
-        return torch.device("cuda")
+        if not torchrun_env():
+            return torch.device("cuda")
+        device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+        return device
     raise ValueError(f"--device {name} is not served by the PyTorch port "
                      f"(choose auto, gpu or cpu)")
 
@@ -67,20 +75,11 @@ def as_device(device: Optional[str | torch.device]) -> torch.device:
     return torch.device(device)
 
 
-def _todo(flag, item):
-    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue "
-                              f"A item {item})")
-
-
 def check_supported(args) -> None:
-    """Raise for the device-layout flags that no CLI of this port serves
-    yet."""
-    if args.context_parallel:
-        _todo("--context-parallel", 13)
-    if args.tensor_parallel > 1:
-        _todo("--tensor-parallel", 13)
-    if args.num_devices > 1:
-        _todo("--num-devices > 1", 13)
+    """``setup``'s check of the flags: every flag of edsnet_tpu's CLIs is
+    served, so nothing raises here.  The device-layout flags raise JAX's
+    ValueErrors where their mesh is built, when the world lacks the
+    ranks they ask for."""
 
 
 # the train CLI serves the same flags as the evaluate CLI
@@ -97,12 +96,15 @@ TF32_PRECISIONS = ("tensorfloat32", "high", "default", "bfloat16")
 
 def setup(args, check=check_supported) -> torch.device:
     """Entry-point setup shared by the CLIs: the CLI's ``check`` of its
-    flags, the device, and the precision of f32 products from
-    ``--matmul-precision``: cuBLAS's and cuDNN's TF32 switches both on for
-    ``TF32_PRECISIONS``, both off otherwise, so that results compare with
-    f32 references.  The flash kernels keep their own ``precision``."""
+    flags, the device, the process group under ``torchrun``
+    (parallel/mesh.py:init_distributed), and the precision of f32 products
+    from ``--matmul-precision``: cuBLAS's and cuDNN's TF32 switches both
+    on for ``TF32_PRECISIONS``, both off otherwise, so that results compare
+    with f32 references.  The flash kernels keep their own
+    ``precision``."""
     check(args)
     device = resolve_device(args.device)
+    init_distributed(device)
     set_tf32(args.matmul_precision in TF32_PRECISIONS)
     return device
 
@@ -166,11 +168,12 @@ class KnapsackAudit:
 def predict_batches(model, prepared: List[Dict], nms_thresh: float):
     """Predict and NMS every prepared eval batch on the model's device,
     then fetch them -> [(pred_cls, boxes, keep, records)] numpy per batch,
-    padding rows included."""
+    padding rows included (every rank's, under a mesh)."""
     num_scales = _num_scales_of(model)
-    pending = [(predict_nms(model, e["tb"]["seq"], e["tb"]["mask"],
-                            e["tb"]["lens"], num_scales, nms_thresh,
-                            e["tb"].get("motion"), e["tb"].get("motion_mask")),
+    pending = [(gather_rows(e, *predict_nms(
+                    model, e["tb"]["seq"], e["tb"]["mask"], e["tb"]["lens"],
+                    num_scales, nms_thresh, e["tb"].get("motion"),
+                    e["tb"].get("motion_mask"))),
                 e["records"]) for e in prepared]
     return [tuple(t.cpu().numpy() for t in out) + (records,)
             for out, records in pending]
@@ -230,14 +233,31 @@ def evaluate(model, records: List[VideoRecord], nms_thresh: float,
                           knapsack_audit, per_video)
 
 
+def eval_mesh(args):
+    """The mesh the device evaluator splits rows over (JAX's
+    ``make_mesh(--num-devices)``, with its ValueError), or the ring mesh
+    that ``configure_context_parallel`` registered, whose seq ranks share
+    their rows."""
+    from edsnet_torch.models.base import RING_DISABLED, get_ring_mesh
+    mesh = make_mesh(args.num_devices)
+    ring = get_ring_mesh()
+    return mesh if ring is None or ring is RING_DISABLED else ring[0]
+
+
 def main(argv=None):
     args = config_lib.get_arguments(argv)
     device = setup(args)
-    config_lib.init_logger(args.model_dir, args.log_file)
+    if args.context_parallel:
+        from edsnet_torch.models.base import configure_context_parallel
+        configure_context_parallel(args.context_parallel, args.cp_min_len)
+    writer = is_writer()
+    if writer:
+        config_lib.init_logger(args.model_dir, args.log_file)
     config_lib.set_random_seed(args.seed)
     logger.info(vars(args))
 
     model = get_model(args.model, **vars(args)).to(device).eval()
+    mesh = None      # the device evaluator's, built at its first use
 
     for split_path in args.splits:
         split_path = Path(split_path)
@@ -250,22 +270,24 @@ def main(argv=None):
             if audit is not None or args.host_eval:
                 eval_fn, eval_kwargs = evaluate, {"knapsack_audit": audit}
             else:
-                eval_fn, eval_kwargs = evaluate_on_device, {}
+                mesh = mesh or eval_mesh(args)
+                eval_fn, eval_kwargs = evaluate_on_device, {"mesh": mesh}
             fscore, diversity = eval_fold_from_checkpoint(
                 args, model, split_path, split_idx, split["test_keys"],
                 eval_fn=eval_fn, **eval_kwargs)
             if audit is not None:
-                msg = audit.report()
-                logger.info(msg)
-                print(msg)
+                _report(audit.report(), writer)
             stats.update(fscore=fscore, diversity=diversity)
-            msg = (f"{split_path.stem} split {split_idx}: diversity: "
-                   f"{diversity:.4f}, F-score: {fscore:.4f}")
-            logger.info(msg)
-            print(msg)
+            _report(f"{split_path.stem} split {split_idx}: diversity: "
+                    f"{diversity:.4f}, F-score: {fscore:.4f}", writer)
 
-        msg = (f"{split_path.stem}: diversity: {stats.diversity:.4f}, "
-               f"F-score: {stats.fscore:.4f}")
+        _report(f"{split_path.stem}: diversity: {stats.diversity:.4f}, "
+                f"F-score: {stats.fscore:.4f}", writer)
+
+
+def _report(msg: str, writer: bool) -> None:
+    """Log and print a result line (rank 0 only under a mesh)."""
+    if writer:
         logger.info(msg)
         print(msg)
 

@@ -1,14 +1,13 @@
 """Vanilla multi-head self-attention backbone.
 
-Counterpart of edsnet_tpu/models/attention.py:AttentionExtractor (without
-its ring-attention route): bias-free Q/K/V/fc projections, padded keys
-excluded from the softmax, dropout 0.5 on the attention map and on the
-output in training.  Each pass asks ``flash_route``, from its device,
-mode and shapes, whether to take the flash kernel
-(kernels/flash_attention.py) and at which precision: ``use_flash`` is the
---use-pallas tri-state.  The flash route is differentiable, but training
-keeps the dense path, because its dropout acts on the attention map
-itself.
+Counterpart of edsnet_tpu/models/attention.py:AttentionExtractor:
+bias-free Q/K/V/fc projections, padded keys excluded from the softmax,
+dropout 0.5 on the attention map and on the output in training.  Each
+pass asks ``flash_route``, from its device, mode and shapes, whether to
+take the flash kernel (kernels/flash_attention.py) and at which
+precision: ``use_flash`` is the --use-pallas tri-state.  The flash route
+is differentiable, but training keeps the dense path, because its dropout
+acts on the attention map itself.
 
 ``flash_route`` decides from the shapes alone and before any launch (as
 JAX's length threshold does):
@@ -29,16 +28,31 @@ JAX's length threshold does):
 The backward kernels take D up to 128 (``BWD_HEAD_DIMS``): the flash route
 is differentiated only by callers of ``flash_attention``, never by a
 training pass here, and at D = 256 or 512 its backward raises.
+
+Two routes of the parallel slice come before that rule:
+- the ring (``_ring_plan``, JAX's): on deterministic passes of a module
+  built under ``--context-parallel`` (models/base.py), at N >=
+  ``cp_min_len`` and N divisible by the seq axis of the ring mesh the
+  trainer or evaluate registered (``set_ring_mesh``), this rank's chunk
+  of the positions goes through parallel/ring_attention.py;
+- tensor parallelism: after ``parallel/tensor_parallel.py:
+  shard_params_tp`` the module holds H/tp heads, its ``fc`` partial is
+  summed over the ``model`` ranks, and its attention-map dropout keeps
+  its heads of the whole draw; under ``emulate_tp`` the module runs every
+  rank's heads itself and sums their partials.
+Each rank's heads go through ``attend``, whatever the route.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from edsnet_torch.kernels.flash_attention import HEAD_DIMS
-from edsnet_torch.models.common import Dropout, Linear, masked_softmax
+from edsnet_torch.models.common import (Dropout, Linear, masked_softmax,
+                                        promote)
 
 # Shortest sequence the flash route takes.  0 routes every deterministic
 # attention pass through the kernel: the JAX thresholds (1024 / 2048) come
@@ -65,37 +79,79 @@ def flash_route(on_cuda: bool, training: bool, n: int, head_dim: int,
 
 
 class AttentionExtractor(nn.Module):
-    """(B, N, F) -> (B, N, F) self-attention mixing."""
+    """(B, N, F) -> (B, N, F) self-attention mixing.
+
+    ``context_parallel`` (-1 or > 1: the ring route may run) and
+    ``cp_min_len`` are baked in at construction from ``--context-parallel``
+    and ``--cp-min-len``, as JAX's module fields are."""
 
     def __init__(self, num_head: int = 8, num_feature: int = 1024,
                  attn_dropout: float = 0.5, out_dropout: float = 0.5,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None, context_parallel: int = 0,
+                 cp_min_len: int = 1024):
         super().__init__()
         if num_feature % num_head:
             raise ValueError(f"num_feature {num_feature} must be divisible "
                              f"by num_head {num_head} (head split)")
         self.num_head = num_head
         self.use_flash = use_flash
+        self.context_parallel = context_parallel
+        self.cp_min_len = cp_min_len
         self.Q = Linear(num_feature, num_feature, bias=False)
         self.K = Linear(num_feature, num_feature, bias=False)
         self.V = Linear(num_feature, num_feature, bias=False)
         self.fc = Linear(num_feature, num_feature, bias=False)
         self.attn_dropout = Dropout(attn_dropout)
         self.out_dropout = Dropout(out_dropout)
+        self.tp = None          # the mesh whose "model" axis splits the heads
+        self.tp_emulate = 0     # > 0: that many model ranks in this process
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _ring_plan(self, n: int):
+        """(mesh, seq_axis, batch_axis, head_axis) of the registered ring
+        mesh, or None for the flash / dense rule.  Unlike JAX's, no
+        standalone mesh: without a registered one (a world of 1, or a
+        count the ring does not divide) the ring stays off, since this
+        rank's rows need not be its seq peers'."""
+        if not self.context_parallel or self.training or n < self.cp_min_len:
+            return None
+        from edsnet_torch.models.base import RING_DISABLED, get_ring_mesh
+        reg = get_ring_mesh()
+        if reg is None or reg is RING_DISABLED:
+            return None
+        mesh, seq_ax = reg[0], reg[1]
+        p = mesh.shape[seq_ax]
+        if p < 2 or n % p:
+            return None
+        return reg
+
+    def attend(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+               weights: Sequence[torch.Tensor], heads: int) -> torch.Tensor:
+        """The attention of ``heads`` heads of head dim F / num_head, with
+        the Q / K / V weights ``weights`` ([heads * D, F] each) ->
+        [B, N, heads * D], before ``fc``: one rank's part."""
         b, n, f = x.shape
-        h = self.num_head
-        d_k = f // h
+        d_k = f // self.num_head
 
-        def heads(proj):
-            return proj(x).reshape(b, n, h, d_k).transpose(1, 2)
+        def split(w):
+            return F.linear(*promote(x, w)).reshape(
+                b, n, heads, d_k).transpose(1, 2)
 
-        q, k, v = heads(self.Q), heads(self.K), heads(self.V)
-        precision = flash_route(x.is_cuda, self.training, n, d_k,
-                                self.use_flash)
-        if precision is not None:
+        q, k, v = (split(w) for w in weights)
+        plan = self._ring_plan(n)
+        precision = None if plan is not None else flash_route(
+            x.is_cuda, self.training, n, d_k, self.use_flash)
+        if plan is not None:
+            from edsnet_torch.parallel.ring_attention import ring_attention
+            mesh, seq_ax, b_ax, h_ax = plan
+            p = mesh.shape[seq_ax]
+            lo = mesh.axis_rank(seq_ax) * (n // p)
+            hi = lo + n // p
+            y = ring_attention(
+                q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                None if mask is None else mask[:, lo:hi], mesh=mesh,
+                axis_name=seq_ax, batch_axis=b_ax, head_axis=h_ax
+            ).to(x.dtype)
+        elif precision is not None:
             from edsnet_torch.kernels.flash_attention import flash_attention
             y = flash_attention(q, k, v, mask, precision=precision)
         else:
@@ -103,5 +159,26 @@ class AttentionExtractor(nn.Module):
             key_mask = None if mask is None else mask[:, None, None, :]
             attn = self.attn_dropout(masked_softmax(attn, key_mask, dim=-1))
             y = torch.einsum("bhnm,bhmd->bhnd", attn, v)
-        y = y.transpose(1, 2).reshape(b, n, f)
-        return self.out_dropout(self.fc(y))
+        return y.transpose(1, 2).reshape(b, n, heads * d_k)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        qkv = (self.Q.weight, self.K.weight, self.V.weight)
+        if self.tp_emulate:
+            from edsnet_torch.parallel.tensor_parallel import head_slices
+            p, y = self.tp_emulate, None
+            for r in range(p):
+                ws, fc_w = head_slices(self, r, p)
+                part = F.linear(*promote(
+                    self.attend(x, mask, ws, self.num_head // p), fc_w))
+                y = part if y is None else y + part
+        elif self.tp is not None:
+            from edsnet_torch.parallel.tensor_parallel import (
+                copy_to_model_region, reduce_from_model_region)
+            heads = self.num_head // self.tp.shape["model"]
+            y = self.fc(self.attend(copy_to_model_region(x, self.tp), mask,
+                                    qkv, heads))
+            y = reduce_from_model_region(y, self.tp)
+        else:
+            y = self.fc(self.attend(x, mask, qkv, self.num_head))
+        return self.out_dropout(y)

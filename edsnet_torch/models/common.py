@@ -179,18 +179,42 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12
 class Dropout(nn.Module):
     """Inverted dropout that draws its keep mask from ``self.generator``
     (the trainer's dropout stream, see ``set_dropout_generator``), or from
-    the global generator while that is None.  Identity in eval mode."""
+    the global generator while that is None.  Identity in eval mode.
+
+    Under a mesh, the input is one block of a larger tensor: ``shards``
+    lists (dim, index, count), block ``index`` of ``count`` along ``dim``
+    (the rank's rows of the batch, its heads of the attention map).  The
+    keep mask is then drawn at the whole tensor's shape and cut to the
+    block, so that every rank's generator draws the same numbers, as
+    JAX's keys are the same under any sharding, and the mask equals one
+    process's."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.shards: Tuple[Tuple[int, int, int], ...] = ()
+
+    def shard(self, dim: int, index: int, count: int) -> None:
+        """Draw as block ``index`` of ``count`` along ``dim`` (replacing
+        an earlier rule for ``dim``; ``count`` 1 removes it)."""
+        rest = tuple(s for s in self.shards if s[0] != dim)
+        self.shards = rest + (((dim, index, count),) if count > 1 else ())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        if not self.shards:
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) >= self.p
+        else:
+            full = list(x.shape)
+            for dim, _, count in self.shards:
+                full[dim] *= count
+            u = torch.rand(full, generator=self.generator, device=x.device)
+            for dim, index, _ in self.shards:
+                u = u.narrow(dim, index * x.shape[dim], x.shape[dim])
+            keep = u >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
@@ -200,6 +224,14 @@ def set_dropout_generator(module: nn.Module,
     for sub in module.modules():
         if isinstance(sub, Dropout):
             sub.generator = generator
+
+
+def shard_dropout_rows(module: nn.Module, index: int, count: int) -> None:
+    """Every ``Dropout`` under ``module`` draws as block ``index`` of
+    ``count`` of the batch rows (``Dropout.shards``)."""
+    for sub in module.modules():
+        if isinstance(sub, Dropout):
+            sub.shard(0, index, count)
 
 
 class FcBlock(nn.Module):

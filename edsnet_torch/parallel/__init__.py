@@ -1,0 +1,2 @@
+from edsnet_torch.parallel.mesh import (make_mesh, replicate,  # noqa: F401
+                                        shard_batch)

@@ -5,11 +5,17 @@ Counterpart of edsnet_tpu/parallel/eval_device.py: ``batch_eval_device``
 (the same padding rules), ``_eval_batch_device`` (batched instead of
 vmapped; its predict, clip, round and NMS are ``predict_nms``, which the
 host evaluator in evaluate.py shares), ``_num_scales_of``,
-``eval_fscore_device`` and ``evaluate_on_device``, on one device and without
-a mesh, for both heads, and ``model_needs_motion`` and
-``checkpoint_motion_width`` for the motion head, whose eval batches carry
-the videos' motion features.  Diversity is computed on the host from the
-returned summaries.
+``eval_fscore_device`` and ``evaluate_on_device``, for both heads, and
+``model_needs_motion`` and ``checkpoint_motion_width`` for the motion
+head, whose eval batches carry the videos' motion features.  Diversity is
+computed on the host from the returned summaries.
+
+Under a mesh (``prepare_eval_batches(mesh=)``), the batch size rounds up
+to a multiple of the ``data`` axis and each rank evaluates its block of
+every batch's rows; the per-video F-scores and summaries are gathered over
+``data`` in row order, so every rank sums the same numbers in the same
+order and takes the same best-F decision.  Padding rows are dropped as
+before, so the F-scores are the unsharded ones.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from edsnet_torch.data.batching import _stack_motion, resolve_build_motion
 from edsnet_torch.data.dataset import VideoRecord
 from edsnet_torch.ops import summary as summ_ops
 from edsnet_torch.ops.bbox import nms_masked
+from edsnet_torch.parallel.mesh import Mesh, all_gather, shard_rows
 
 
 def _round_up(x: int, m: int) -> int:
@@ -187,18 +194,33 @@ def summary_diversity(summary: np.ndarray, seq: np.ndarray) -> float:
 
 def prepare_eval_batches(records: List[VideoRecord], batch_size: int,
                          bucket_size: int, device: torch.device | str,
-                         need_motion: Optional[bool] = None) -> List[Dict]:
+                         need_motion: Optional[bool] = None,
+                         mesh: Optional[Mesh] = None) -> List[Dict]:
     """Pad and upload eval batches once, for reuse across evaluations;
-    ``need_motion`` as ``batch_eval_device``'s."""
+    ``need_motion`` as ``batch_eval_device``'s.  With ``mesh``, the batch
+    size rounds up to a multiple of its ``data`` axis and each entry holds
+    this rank's rows (``records`` keeps the batch's real videos)."""
+    if mesh is not None:
+        data = mesh.shape["data"]
+        batch_size = -(-max(batch_size, 1) // data) * data
     prepared = []
     for batch in batch_eval_device(records, batch_size, bucket_size,
                                    need_motion):
-        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
-              if isinstance(v, np.ndarray)}
+        tb = {k: shard_rows(torch.from_numpy(v), mesh).to(device)
+              for k, v in batch.items() if isinstance(v, np.ndarray)}
         prepared.append({"tb": tb, "frame_bucket": batch["frame_bucket"],
                          "uniform_rate": batch["uniform_rate"],
-                         "records": batch["records"]})
+                         "records": batch["records"], "mesh": mesh})
     return prepared
+
+
+def gather_rows(entry: Dict, *tensors: torch.Tensor):
+    """The batch's rows of each of ``tensors`` from every rank of the
+    entry's ``data`` axis, in row order (as is without a mesh)."""
+    mesh = entry.get("mesh")
+    if mesh is None:
+        return tensors
+    return tuple(all_gather(t, mesh, "data") for t in tensors)
 
 
 def model_needs_motion(model) -> bool:
@@ -240,6 +262,7 @@ def eval_fscore_device(model, prepared: List[Dict],
         fs, _ = _eval_batch_device(model, entry["tb"], num_scales,
                                    nms_thresh, entry["frame_bucket"],
                                    uniform_rate=entry["uniform_rate"])
+        fs, = gather_rows(entry, fs)
         n_real = len(entry["records"])
         total = total + fs[:n_real].sum()
         count += n_real
@@ -249,18 +272,21 @@ def eval_fscore_device(model, prepared: List[Dict],
 def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
                        batch_size: int = 4, bucket_size: int = 64,
                        prepared: Optional[List[Dict]] = None,
-                       per_video: Optional[List[Dict]] = None):
+                       per_video: Optional[List[Dict]] = None,
+                       mesh: Optional[Mesh] = None):
     """F-score evaluation on the model's device -> (mean F, mean diversity).
 
     Pass ``prepared`` (prepare_eval_batches) when evaluating the same
-    records repeatedly.  A list given as ``per_video`` receives one dict
-    per video: key, fscore, diversity and the frame summary.
+    records repeatedly; else the batches are made here, their rows split
+    over ``mesh``'s ``data`` axis when one is given.  A list given as
+    ``per_video`` receives one dict per video: key, fscore, diversity and
+    the frame summary.
     """
     num_scales = _num_scales_of(model)
     if prepared is None:
         prepared = prepare_eval_batches(records, batch_size, bucket_size,
                                         _device_of(model),
-                                        model_needs_motion(model))
+                                        model_needs_motion(model), mesh)
 
     # launch every batch first and fetch once
     pending = []
@@ -268,7 +294,7 @@ def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
         fs, summs = _eval_batch_device(
             model, entry["tb"], num_scales, nms_thresh,
             entry["frame_bucket"], uniform_rate=entry["uniform_rate"])
-        pending.append((fs, summs, entry["records"]))
+        pending.append(gather_rows(entry, fs, summs) + (entry["records"],))
 
     fscores, diversities = [], []
     for fs, summs, recs in pending:

@@ -3,11 +3,20 @@ backward and the Adam update over one padded batch of videos.
 
 Counterpart of edsnet_tpu/parallel/steps.py (``make_optimizer``,
 ``resolve_batch``, ``_sample_marks``, ``build_ab_cls_labels``,
-``ab_train_step``, ``af_train_step``), on one device.  The step queues its work on the
+``ab_train_step``, ``af_train_step``).  The step queues its work on the
 device and returns its losses as device tensors: nothing in it waits for
 the device.  The model runs in training mode, so the attention backbone
 takes its dense path with dropout on the attention map, as the TPU
 package's step does.
+
+Under a ``mesh`` (parallel/mesh.py) each rank steps on its rows of the
+global batch: the weight sum of the denominator and the losses are summed
+over the ``data`` ranks, and so are the gradients before Adam, so that the
+update is the one-device update on the global batch (an explicit sum, not
+DDP, whose mean would need the loss scaled by the data size).  With more
+than one data rank, the label draws are made at the global batch's shape
+and cut to the rank's rows, as the dropout masks are
+(models/common.py:Dropout), so every rank's generators stay in step.
 
 ``compute_dtype="bfloat16"`` is JAX's mixed precision: the forward runs
 on a bfloat16 copy of the float parameters (buffers, like Performer's
@@ -23,7 +32,7 @@ states so that the recomputation draws the same masks.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from edsnet_torch.models.common import Dropout
 from edsnet_torch.ops import losses as L
+from edsnet_torch.parallel.mesh import Mesh, all_reduce_sum
 
 
 def make_optimizer(params, lr: float, weight_decay: float
@@ -76,16 +86,25 @@ def _sample_marks(eligible: torch.Tensor, num: torch.Tensor,
 
 
 def build_ab_cls_labels(batch: Dict, generator: Optional[torch.Generator],
-                        neg_ratio: float, inc_ratio: float) -> torch.Tensor:
+                        neg_ratio: float, inc_ratio: float,
+                        rows: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
     """Per-video random negatives and incompletes -> -1/0/1 labels; the
-    uniform draws come from ``generator``."""
+    uniform draws come from ``generator``.  ``rows`` (index, count): the
+    batch is block ``index`` of ``count`` of the global batch's rows, and
+    each draw is made at the global shape and cut to the block."""
     num_pos = batch["num_pos"]
     num_neg = (neg_ratio * num_pos).to(torch.int32)
     num_inc = (inc_ratio * num_pos).to(torch.int32)
     device = num_pos.device
 
     def draws(shape):
-        return torch.rand(shape, generator=generator, device=device)
+        if rows is None:
+            return torch.rand(shape, generator=generator, device=device)
+        index, count = rows
+        u = torch.rand((shape[0] * count,) + tuple(shape[1:]),
+                       generator=generator, device=device)
+        return u[index * shape[0]:(index + 1) * shape[0]]
 
     neg = _sample_marks(batch["neg_eligible"], num_neg,
                         draws(batch["neg_eligible"].shape))
@@ -154,12 +173,62 @@ def train_forward(model: nn.Module, x: torch.Tensor, mask: torch.Tensor,
                       context_fn=_dropout_replay(model))
 
 
+def data_rows(mesh: Optional[Mesh]) -> Optional[Tuple[int, int]]:
+    """(this rank's index, count) on the mesh's ``data`` axis, or None
+    without a process group or with one data rank (draws as one
+    process)."""
+    if mesh is None or not mesh.distributed or mesh.shape["data"] == 1:
+        return None
+    return mesh.axis_rank("data"), mesh.shape["data"]
+
+
+def _sum_over_data(tensors: List[torch.Tensor], mesh: Optional[Mesh]
+                   ) -> None:
+    """In place: ``tensors`` summed over the ``data`` ranks, in one
+    all-reduce of their concatenation."""
+    if mesh is None or not mesh.distributed or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce_sum(flat, mesh, "data")
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def _update(model: nn.Module, optimizer: torch.optim.Optimizer,
+            loss: torch.Tensor, mesh: Optional[Mesh]) -> None:
+    """Backward, the gradients summed over the data ranks, Adam."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    _sum_over_data([p.grad for p in model.parameters()
+                    if p.grad is not None], mesh)
+    optimizer.step()
+
+
+def _weight_sum(w: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """max(sum of the global batch's video weights, 1)."""
+    total = w.sum()
+    _sum_over_data([total], mesh)
+    return torch.clamp(total, min=1.0)
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                    ) -> Dict[str, torch.Tensor]:
+    """Each rank's share of the losses summed over the data ranks."""
+    if mesh is None or not mesh.distributed:
+        return metrics
+    stacked = torch.stack(list(metrics.values()))
+    _sum_over_data([stacked], mesh)
+    return dict(zip(metrics, stacked.unbind()))
+
+
 def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   batch: Dict, generator: Optional[torch.Generator], *,
                   lambda_reg: float, neg_ratio: float, inc_ratio: float,
                   cls_label: Optional[torch.Tensor] = None,
-                  remat: bool = False, compute_dtype: str = "float32"
-                  ) -> Dict[str, torch.Tensor]:
+                  remat: bool = False, compute_dtype: str = "float32",
+                  mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step over a padded batch -> {loss, cls_loss, loc_loss} as
     device scalars.
 
@@ -167,13 +236,14 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     is given.  Per-video losses are weighted by ``video_valid & num_pos >
     0`` over ``max(sum of weights, 1)``.  Dropout draws from the model's
     own generators (models/common.py:set_dropout_generator).  ``remat``
-    and ``compute_dtype`` as in the module docstring."""
+    and ``compute_dtype`` as in the module docstring; ``batch`` holds this
+    rank's rows of ``mesh``'s ``data`` axis."""
     batch = resolve_batch(batch)
     if cls_label is None:
         cls_label = build_ab_cls_labels(batch, generator, neg_ratio,
-                                        inc_ratio)
+                                        inc_ratio, rows=data_rows(mesh))
     w = (batch["video_valid"] & (batch["num_pos"] > 0)).to(torch.float32)
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = _weight_sum(w, mesh)
 
     model.train()
     pred_cls, pred_loc = train_forward(
@@ -183,18 +253,18 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     cls = L.ab_cls_loss(pred_cls, cls_label)
     loss = ((cls + lambda_reg * loc) * w).sum() / denom
 
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    _update(model, optimizer, loss, mesh)
     with torch.no_grad():
-        return {"loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
-                "loc_loss": (loc * w).sum() / denom}
+        return _global_metrics({
+            "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
+            "loc_loss": (loc * w).sum() / denom}, mesh)
 
 
 def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   batch: Dict, *, lambda_reg: float, lambda_ctr: float,
                   cls_kind: str, reg_kind: str, remat: bool = False,
-                  compute_dtype: str = "float32") -> Dict[str, torch.Tensor]:
+                  compute_dtype: str = "float32",
+                  mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One anchor-free step over a padded batch -> {loss, cls_loss,
     loc_loss, ctr_loss} as device scalars.
 
@@ -204,10 +274,11 @@ def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     alone (a video without positives still counts, unlike the anchor-based
     step) over ``max(sum of weights, 1)``.  The labels are the batch's, so
     nothing is drawn but dropout, from the model's own generators;
-    ``remat`` and ``compute_dtype`` as in the module docstring."""
+    ``remat`` and ``compute_dtype`` as in the module docstring; ``mesh``
+    as ``ab_train_step``'s."""
     batch = resolve_batch(batch)
     w = batch["video_valid"].to(torch.float32)
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = _weight_sum(w, mesh)
     target = batch["target"]
 
     model.train()
@@ -218,10 +289,9 @@ def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ctr = L.af_ctr_loss(pred_ctr, batch["af_ctr"], target)
     loss = ((cls + lambda_reg * loc + lambda_ctr * ctr) * w).sum() / denom
 
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    _update(model, optimizer, loss, mesh)
     with torch.no_grad():
-        return {"loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
-                "loc_loss": (loc * w).sum() / denom,
-                "ctr_loss": (ctr * w).sum() / denom}
+        return _global_metrics({
+            "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
+            "loc_loss": (loc * w).sum() / denom,
+            "ctr_loss": (ctr * w).sum() / denom}, mesh)

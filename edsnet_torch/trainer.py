@@ -1,6 +1,6 @@
-"""Training loop on one device, for both heads.
+"""Training loop, for both heads, on one device or over a mesh of ranks.
 
-Counterpart of edsnet_tpu/trainer.py:train, without a mesh:
+Counterpart of edsnet_tpu/trainer.py:train:
 - every video's labels are prepared once (data/batching.py); the videos are
   uploaded once, grouped by length bucket into pools, and each epoch's
   batches are composed on the device by a gather (``compose_epoch``), or
@@ -31,6 +31,20 @@ Counterpart of edsnet_tpu/trainer.py:train, without a mesh:
 
 ``train`` reads a split's videos from the h5 files; ``train_records`` takes
 the videos in memory.
+
+The mesh block is JAX's (parallel/mesh.py): ``--num-devices`` ranks on a
+``('data',)`` mesh, or ``('data', 'model')`` with ``--tensor-parallel``
+(the attention heads split, parallel/tensor_parallel.py), and
+``--context-parallel`` registers a ``('data', 'seq'[, 'model'])`` ring
+mesh over the same ranks for the validation's attention, clamped to the
+ranks tp leaves, and off with a warning below 2.  Batches pad to a
+multiple of the data axis (``--pad-batch-to`` above it keeps shapes and
+random streams whatever the mesh); each rank steps on its block of rows
+and evaluates its block of the validation rows.  Every rank composes the
+same epochs from the same seeds; rank 0 writes the checkpoint and the
+``.state`` file, which hold the full ``state_dict`` under any mesh.
+Without a process group the mesh is this process alone and every step is
+the one-device step.
 """
 from __future__ import annotations
 
@@ -45,13 +59,18 @@ import torch
 from edsnet_torch.data import batching
 from edsnet_torch.data.dataset import AverageMeter, VideoDataset, VideoRecord
 from edsnet_torch.evaluate import check_train_supported, evaluate, setup
-from edsnet_torch.models.common import init_weights, set_dropout_generator
+from edsnet_torch.models.common import (init_weights, set_dropout_generator,
+                                        shard_dropout_rows)
 from edsnet_torch.models.model_zoo import get_model
 from edsnet_torch.parallel.eval_device import (eval_fscore_device,
                                                model_needs_motion,
                                                prepare_eval_batches)
+from edsnet_torch.parallel.mesh import (Mesh, make_dp_tp_mesh, make_mesh,
+                                        make_ring_mesh, replicate,
+                                        shard_batch, shard_rows, world)
 from edsnet_torch.parallel.steps import (ab_train_step, af_train_step,
-                                         make_optimizer)
+                                         data_rows, make_optimizer)
+from edsnet_torch.parallel.tensor_parallel import shard_params_tp
 from edsnet_torch.utils import checkpoint as ckpt_lib
 from edsnet_torch.utils.profiling import StepTimer, maybe_trace
 
@@ -73,6 +92,48 @@ def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """The numpy arrays of a batch as tensors on ``device``."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
             if isinstance(v, np.ndarray)}
+
+
+def training_mesh(args) -> Tuple[Mesh, Mesh]:
+    """(the training mesh, the mesh validation rows split over): JAX's
+    mesh block, with its warnings and ValueError texts.  The second is
+    the registered ring mesh when ``--context-parallel`` gets one (rows
+    over its ``data`` axis, replicated within a seq group), else the
+    training mesh."""
+    from edsnet_torch.models.base import (disable_ring_attention,
+                                          set_ring_mesh)
+    tp = int(args.tensor_parallel or 0)
+    if tp > 1:
+        total = args.num_devices or world()[1]
+        if total % tp:
+            raise ValueError(f"--tensor-parallel {tp} must divide the "
+                             f"device count {total}")
+        mesh = make_dp_tp_mesh(total // tp, tp)
+    else:
+        mesh = make_mesh(args.num_devices)
+    cp = int(args.context_parallel or 0)
+    if not cp:
+        return mesh, mesh
+    seq_cap = mesh.size // max(tp, 1)   # ranks left for the ring
+    cp_eff = min(cp, seq_cap) if cp > 0 else seq_cap
+    if cp_eff < 2:
+        logger.warning(
+            f"--context-parallel {cp}: ring attention needs >=2 "
+            f"sequence-axis devices but only {mesh.size} device(s) "
+            f"are available" + (f" with --tensor-parallel {tp}"
+                                if tp > 1 else "")
+            + "; ring attention stays off")
+        disable_ring_attention()
+        return mesh, mesh
+    if 0 < cp != cp_eff:
+        logger.warning(f"--context-parallel {cp} clamped to {cp_eff} "
+                       f"({mesh.size} device(s)"
+                       + (f", {tp} on the tensor axis" if tp > 1 else "")
+                       + ")")
+    ring = make_ring_mesh(cp_eff, tp, num_devices=mesh.size)
+    set_ring_mesh(ring, "seq", batch_axis="data",
+                  head_axis="model" if tp > 1 else None)
+    return mesh, ring
 
 
 def train(args, split, save_path) -> Tuple[float, List[float], List[int]]:
@@ -121,11 +182,24 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                 f"the h5 for every video; missing for {missing[:3]}...")
         # the data's motion width, which flax reads at init
         model.set_motion_width(items[0].motion.shape[-1])
+    mesh, eval_mesh = training_mesh(args)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     model = model.to(device)
+    replicate(list(model.state_dict().values()), mesh)
+    layout = None
+    tp = int(args.tensor_parallel or 0)
+    if tp > 1:
+        layout = shard_params_tp(model, mesh, args.num_head)
+        if not layout.specs:
+            logger.warning(f"--tensor-parallel {tp} has no effect: base "
+                           f"model '{args.base_model}' has no attention "
+                           f"modules")
+    rows = data_rows(mesh)
+    if rows is not None:
+        shard_dropout_rows(model, *rows)
     prepared_eval = prepare_eval_batches(
         list(val_videos), max(args.batch_size, 1), args.bucket_size, device,
-        need_motion)
+        need_motion, mesh=eval_mesh)
 
     rng = np.random.RandomState(args.seed)
     generators = {
@@ -133,14 +207,19 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         "label": torch.Generator(device=device).manual_seed(args.seed + 2)}
     set_dropout_generator(model, generators["dropout"])
     optimizer = make_optimizer(model.parameters(), args.lr, args.weight_decay)
-    pad_to = max(args.pad_batch_to, 1)   # batch rows, a multiple of this
+    # batch rows, a multiple of this: the data axis, or the multiple of it
+    # that --pad-batch-to fixes above it
+    mesh_n = mesh.shape["data"]
+    pad_to = -(-max(args.pad_batch_to, mesh_n) // mesh_n) * mesh_n
+    # without a process group the step is the one-device step
+    step_mesh = {"mesh": mesh} if mesh.distributed else {}
 
     max_val_fscore = -1.0
     start_epoch = 0
     state_path = Path(str(save_path) + ".state")
     if args.resume and state_path.exists():
         start_epoch, max_val_fscore, extras = ckpt_lib.load_train_state(
-            model, optimizer, state_path)
+            model, optimizer, state_path, layout)
         if "np_rng" in extras:
             ckpt_lib.restore_np_rng(rng, extras["np_rng"])
         for name, state in extras.get("generators", {}).items():
@@ -148,13 +227,23 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         logger.info(f"resumed from {state_path} at epoch {start_epoch} "
                     f"(best F-score {max_val_fscore:.4f})")
 
+    def whole(state):
+        """What a checkpoint holds of a module or a state_dict: the full
+        state_dict, gathered over the model ranks under tp."""
+        if layout is None:
+            return state
+        if isinstance(state, torch.nn.Module):
+            state = state.state_dict()
+        return layout.gather_state(state)
+
     def save_state(epoch: int, best: float) -> None:
         ckpt_lib.save_train_state(model, optimizer, epoch, best, state_path,
-                                  np_rng=rng, generators=generators)
+                                  np_rng=rng, generators=generators,
+                                  layout=layout)
 
     if args.static_batches:
         device_batches = [
-            (to_device(b, device), int(b["mask"].sum()))
+            (shard_batch(to_device(b, device), mesh), int(b["mask"].sum()))
             for b in batching.batch_items(items, args.batch_size,
                                           args.bucket_size, shuffle=False,
                                           pad_batch_to=pad_to)]
@@ -204,8 +293,10 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                         for i in rng.permutation(len(device_batches))]
             else:
                 todo = [({"pool": device_pools[pi],
-                          "gather_idx": torch.from_numpy(idx).to(device),
-                          "video_valid": torch.from_numpy(valid).to(device)},
+                          "gather_idx": shard_rows(
+                              torch.from_numpy(idx), mesh).to(device),
+                          "video_valid": shard_rows(
+                              torch.from_numpy(valid), mesh).to(device)},
                          frames)
                         for pi, idx, valid, frames in compose_epoch()]
             for batch, frames in todo:
@@ -216,13 +307,14 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                         lambda_reg=args.lambda_reg,
                         neg_ratio=args.neg_sample_ratio,
                         inc_ratio=args.incomplete_sample_ratio,
-                        remat=args.remat, compute_dtype=compute_dtype)
+                        remat=args.remat, compute_dtype=compute_dtype,
+                        **step_mesh)
                 else:
                     metrics = af_train_step(
                         model, optimizer, batch, lambda_reg=args.lambda_reg,
                         lambda_ctr=args.lambda_ctr, cls_kind=args.cls_loss,
                         reg_kind=args.reg_loss, remat=args.remat,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, **step_mesh)
                 epoch_metrics.append(metrics)
                 timer.stop(frames,
                            sync=metrics["loss"] if args.profile else None)
@@ -239,7 +331,7 @@ def train_records(args, train_videos: Sequence[VideoRecord],
             # best F it records has its parameters on disk
             best = float(best_f)
             if best > flushed_best:
-                ckpt_lib.save_checkpoint(best_state, save_path)
+                ckpt_lib.save_checkpoint(whole(best_state), save_path)
                 flushed_best = best
             save_state(epoch + 1, best)
         if (epoch + 1) % eval_every and epoch + 1 != args.max_epoch:
@@ -260,7 +352,7 @@ def train_records(args, train_videos: Sequence[VideoRecord],
             epoch_list.append(epoch)
             if max_val_fscore < val_f:
                 max_val_fscore = val_f
-                ckpt_lib.save_checkpoint(model, save_path)
+                ckpt_lib.save_checkpoint(whole(model), save_path)
             if args.resume:
                 save_state(epoch + 1, max_val_fscore)
             if should_log:
@@ -300,7 +392,7 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                 f"Dispatch: {time_list[-1]:.2f}s "
                 f"Device: {device_avg:.2f}s/epoch (fenced, avg of {span})")
             if best > flushed_best:
-                ckpt_lib.save_checkpoint(best_state, save_path)
+                ckpt_lib.save_checkpoint(whole(best_state), save_path)
                 flushed_best = best
             if args.resume:
                 save_state(epoch + 1, best)
@@ -311,7 +403,7 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         best = float(best_f)
         max_val_fscore = max(max_val_fscore, best)
         if best > flushed_best:
-            ckpt_lib.save_checkpoint(best_state, save_path)
+            ckpt_lib.save_checkpoint(whole(best_state), save_path)
         if args.resume:
             save_state(args.max_epoch, max_val_fscore)
     if time_list:

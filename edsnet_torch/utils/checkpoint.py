@@ -17,6 +17,14 @@ the trainer's RNG streams (the numpy ``RandomState`` that composes batches
 and the torch generators of dropout and label sampling), so a resumed run
 replays an uninterrupted one.  The TPU package's msgpack snapshots are not
 read.
+
+Under tensor parallelism (``layout``, parallel/tensor_parallel.py:
+``TPLayout``) the files still hold the full ``state_dict`` and full Adam
+moments, gathered over the ``model`` ranks, so a checkpoint is the same
+file whatever the mesh; ``load_train_state`` slices them back to this
+rank's heads.  Every rank calls ``save_train_state`` (its gathers are
+collectives) and ``save_checkpoint``, which the trainer hands the
+gathered ``state_dict``; rank 0 writes.
 """
 from __future__ import annotations
 
@@ -29,13 +37,17 @@ import torch
 from torch import nn
 
 from edsnet_torch.convert import flax_to_state_dict
+from edsnet_torch.parallel.mesh import is_writer
 
 _EXT_NDARRAY = 1
 
 
 def save_checkpoint(model: nn.Module | Mapping[str, torch.Tensor],
                     path) -> None:
-    """Write a module's ``state_dict``, or a state_dict itself."""
+    """Write a module's ``state_dict``, or a state_dict itself (rank 0;
+    under tensor parallelism the caller passes the gathered one)."""
+    if not is_writer():
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     state = model.state_dict() if isinstance(model, nn.Module) else model
@@ -46,13 +58,19 @@ def save_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                      epoch: int, best_fscore: float, path,
                      np_rng: Optional[np.random.RandomState] = None,
                      generators: Optional[Mapping[str, torch.Generator]]
-                     = None) -> None:
+                     = None, layout=None) -> None:
     """Write the resumable train state: ``epoch`` is the next one to run.
     The file is replaced in one step, so a crash mid-write keeps the last
-    snapshot."""
+    snapshot.  ``layout``: the model and moments are gathered whole."""
+    state, opt_state = dict(model.state_dict()), optimizer.state_dict()
+    if layout is not None:
+        state = layout.gather_state(state)
+        opt_state = layout.gather_optimizer(model, opt_state)
+    if not is_writer():
+        return
     payload: Dict[str, Any] = {
-        "model": dict(model.state_dict()),
-        "optimizer": optimizer.state_dict(),
+        "model": state,
+        "optimizer": opt_state,
         "epoch": int(epoch),
         "best_fscore": float(best_fscore),
     }
@@ -72,15 +90,20 @@ def save_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def load_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                     path) -> Tuple[int, float, Dict[str, Any]]:
+                     path, layout=None) -> Tuple[int, float, Dict[str, Any]]:
     """Restore a snapshot into ``model`` and ``optimizer`` -> (next epoch,
     best F-score, extras); ``extras`` holds the saved ``np_rng`` payload and
     ``generators`` states, where recorded.  It is read onto the CPU: the
     loads move each tensor to its parameter's device, and Adam's step
-    counts and the generator states stay on the CPU, as in a fresh run."""
+    counts and the generator states stay on the CPU, as in a fresh run.
+    ``layout``: the full tensors are sliced to this rank's heads."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(raw["model"], strict=True)
-    optimizer.load_state_dict(raw["optimizer"])
+    state, opt_state = raw["model"], raw["optimizer"]
+    if layout is not None:
+        state = layout.slice_state(state)
+        opt_state = layout.slice_optimizer(model, opt_state)
+    model.load_state_dict(state, strict=True)
+    optimizer.load_state_dict(opt_state)
     extras = {k: raw[k] for k in ("np_rng", "generators") if k in raw}
     return int(raw["epoch"]), float(raw["best_fscore"]), extras
 

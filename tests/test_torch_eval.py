@@ -142,10 +142,27 @@ def test_evaluate_cli_reads_jax_checkpoint(tmp_path, capsys):
     ["--context-parallel", "2"], ["--tensor-parallel", "2"],
     ["--num-devices", "2"]])
 def test_unserved_flags_raise(flags):
+    """The device-layout flags are served: setup passes them, and on one
+    process only a request for more devices than the world holds raises,
+    with JAX's text, where evaluate builds its mesh (evaluate ignores
+    --tensor-parallel, as JAX's does; --context-parallel finds no ring
+    mesh to register)."""
+    from edsnet_torch.models import base as port_base
+
     args = port_evaluate.config_lib.get_arguments(
         ["anchor-based", "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_evaluate.setup(args)
+    port_evaluate.setup(args)
+    try:
+        port_base.configure_context_parallel(args.context_parallel)
+        assert port_base.get_ring_mesh() is None
+        if args.num_devices > 1:
+            with pytest.raises(ValueError, match="requested 2 devices, but "
+                                                 "only 1 are available"):
+                port_evaluate.eval_mesh(args)
+        else:
+            assert port_evaluate.eval_mesh(args).shape == {"data": 1}
+    finally:
+        port_base.set_context_parallel(0)
 
 
 def test_gpu_device_without_cuda_raises(monkeypatch):

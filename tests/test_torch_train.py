@@ -150,9 +150,15 @@ def test_dropout_follows_its_generator():
 @pytest.mark.parametrize("flags", [
     ["--num-devices", "2"], ["--tensor-parallel", "2"]])
 def test_train_flags_not_served_raise(flags):
+    """The flags are served: on one process the trainer's mesh raises
+    JAX's ValueError for the devices the world lacks."""
     args = get_arguments(["anchor-based", "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_evaluate.setup(args, port_evaluate.check_train_supported)
+    port_evaluate.setup(args, port_evaluate.check_train_supported)
+    want = ("requested 2 devices, but only 1 are available"
+            if args.num_devices else
+            "--tensor-parallel 2 must divide the device count 1")
+    with pytest.raises(ValueError, match=want):
+        trainer.training_mesh(args)
     # every depth, pooling and precision is served, on either head
     for extra in (["--model-depth", "deep"], ["--model-depth", "original"],
                   ["--model-depth", "local-global-attention"],
