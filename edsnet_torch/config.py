@@ -148,9 +148,10 @@ def get_parser() -> argparse.ArgumentParser:
                         help="use independent weights per fc_block instead "
                              "of the reference's shared-weight trunk")
     parser.add_argument("--profile", action="store_true",
-                        help="trace epoch 1 with torch.profiler into "
-                             "{model_dir}/profile and wait for the device "
-                             "after every step (fenced frames/s)")
+                        help="trace the run's spans and counters, and "
+                             "epoch 1 with torch.profiler into "
+                             "{model_dir}/profile; logs frames/s over the "
+                             "train steps' fenced device time")
     parser.add_argument("--eval-every", type=int, default=1,
                         help="validate every N epochs (reference: every "
                              "epoch; eval dominates wall-clock on small "

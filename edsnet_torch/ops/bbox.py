@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from edsnet_torch.utils.profiling import count, count_nonzero, span
+
 
 def lr2cw(bbox_lr: torch.Tensor) -> torch.Tensor:
     """Left-right to center-width: [..., 2] -> [K, 2] float32."""
@@ -69,19 +71,29 @@ def nms_masked(scores: torch.Tensor, bboxes: torch.Tensor, thresh: float,
     pass then walks it with two tensor ops per position and no host sync.
     IoU is symmetric, so with the diagonal cleared a kept box is never
     suppressed later, and the surviving ``alive`` mask is the kept set.
+    The tracer's span ``eval/nms`` covers the call; its counters add the
+    rows (``nms.rows``), the loop's trips (``nms.iterations``), the box
+    slots walked (``nms.slots``) and the boxes kept (``nms.kept``).
     """
-    scores = scores.to(torch.float32)
-    bboxes = bboxes.to(torch.float32)
-    b, n = scores.shape
-    alive = bboxes[..., 0] < bboxes[..., 1]
-    if valid is not None:
-        alive = alive & valid.to(torch.bool)
+    with span("eval/nms"):
+        scores = scores.to(torch.float32)
+        bboxes = bboxes.to(torch.float32)
+        b, n = scores.shape
+        alive = bboxes[..., 0] < bboxes[..., 1]
+        if valid is not None:
+            alive = alive & valid.to(torch.bool)
 
-    order = torch.argsort(scores, dim=-1, stable=True).flip(-1)
-    boxes_s = torch.gather(bboxes, 1, order[..., None].expand(b, n, 2))
-    suppress = iou_lr(boxes_s[:, :, None, :], boxes_s[:, None, :, :]) >= thresh
-    suppress.diagonal(dim1=1, dim2=2).fill_(False)
-    alive_s = torch.gather(alive, 1, order)
-    for i in range(n):
-        alive_s.masked_fill_(alive_s[:, i:i + 1] & suppress[:, i], False)
-    return torch.zeros_like(alive).scatter_(1, order, alive_s)
+        order = torch.argsort(scores, dim=-1, stable=True).flip(-1)
+        boxes_s = torch.gather(bboxes, 1, order[..., None].expand(b, n, 2))
+        suppress = iou_lr(boxes_s[:, :, None, :],
+                          boxes_s[:, None, :, :]) >= thresh
+        suppress.diagonal(dim1=1, dim2=2).fill_(False)
+        alive_s = torch.gather(alive, 1, order)
+        for i in range(n):
+            alive_s.masked_fill_(alive_s[:, i:i + 1] & suppress[:, i], False)
+        keep = torch.zeros_like(alive).scatter_(1, order, alive_s)
+        count("nms.rows", b)
+        count("nms.iterations", n)
+        count("nms.slots", b * n)
+        count_nonzero("nms.kept", keep)
+        return keep

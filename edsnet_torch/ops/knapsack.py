@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from edsnet_torch.native import load as _native_load
+from edsnet_torch.utils.profiling import count, count_nonzero, span
 
 _NEG_BIG = -(10 ** 9)
 
@@ -84,6 +85,11 @@ def knapsack(values: torch.Tensor, weights: torch.Tensor,
     :param capacity: [B] int runtime capacities (<= max_capacity).
     :param max_capacity: DP-table width.
     :return: [B, N] bool mask of selected items.
+
+    The tracer's spans ``knapsack/dp`` and ``knapsack/backtrack`` cover the
+    two loops; its counters add the rows (``knapsack.rows``), the loops'
+    trips (``knapsack.steps``), the item slots (``knapsack.slots``) and
+    the real items, of weight above 0 (``knapsack.live``).
     """
     values = values.to(torch.int32)
     weights = weights.to(torch.int32)
@@ -100,25 +106,31 @@ def knapsack(values: torch.Tensor, weights: torch.Tensor,
                      _NEG_BIG).to(torch.int32)
     takes = torch.zeros((b, n, max_capacity + 1), dtype=torch.bool,
                         device=device)
-    for i in range(n):
-        v, w = values[:, i], weights[:, i]
-        # dp'[c] = max(dp[c], dp[c - w] + v) for c >= w
-        padded = torch.cat([neg, dp], dim=1)
-        # the start index is clamped like lax.dynamic_slice clamps it
-        start = torch.clamp(max_capacity - w, 0, max_capacity)
-        idx = start[:, None] + cap_axis[None]
-        shifted = torch.gather(padded, 1, idx.to(torch.int64)) + v[:, None]
-        usable = (w <= capacity) & (v > 0)
-        cand = torch.where(usable[:, None], shifted, -1)
-        took = cand > dp
-        dp = torch.where(took, cand, dp)
-        takes[:, i] = took
+    with span("knapsack/dp"):
+        for i in range(n):
+            v, w = values[:, i], weights[:, i]
+            # dp'[c] = max(dp[c], dp[c - w] + v) for c >= w
+            padded = torch.cat([neg, dp], dim=1)
+            # the start index is clamped like lax.dynamic_slice clamps it
+            start = torch.clamp(max_capacity - w, 0, max_capacity)
+            idx = start[:, None] + cap_axis[None]
+            shifted = torch.gather(padded, 1, idx.to(torch.int64)) + v[:, None]
+            usable = (w <= capacity) & (v > 0)
+            cand = torch.where(usable[:, None], shifted, -1)
+            took = cand > dp
+            dp = torch.where(took, cand, dp)
+            takes[:, i] = took
 
     c = capacity.to(torch.int64)
     rows = torch.arange(b, device=device)
     selected = torch.zeros((b, n), dtype=torch.bool, device=device)
-    for j in range(n - 1, -1, -1):
-        t = takes[rows, j, c]
-        selected[:, j] = t
-        c = torch.where(t, torch.clamp(c - weights[:, j], min=0), c)
+    with span("knapsack/backtrack"):
+        for j in range(n - 1, -1, -1):
+            t = takes[rows, j, c]
+            selected[:, j] = t
+            c = torch.where(t, torch.clamp(c - weights[:, j], min=0), c)
+    count("knapsack.rows", b)
+    count("knapsack.steps", 2 * n)
+    count("knapsack.slots", b * n)
+    count_nonzero("knapsack.live", weights)
     return selected

@@ -16,6 +16,11 @@ every batch's rows; the per-video F-scores and summaries are gathered over
 ``data`` in row order, so every rank sums the same numbers in the same
 order and takes the same best-F decision.  Padding rows are dropped as
 before, so the F-scores are the unsharded ones.
+
+The tracer (utils/profiling.py) sees a pass as the span ``eval/pass``
+over ``eval/predict``, ``eval/nms``, ``eval/raster``, ``eval/summary``
+(the knapsack's loops within it), ``eval/f1``, ``eval/fetch`` (the host's
+wait for the device) and ``eval/diversity``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from edsnet_torch.data.dataset import VideoRecord
 from edsnet_torch.ops import summary as summ_ops
 from edsnet_torch.ops.bbox import nms_masked
 from edsnet_torch.parallel.mesh import Mesh, all_gather, shard_rows
+from edsnet_torch.utils.profiling import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -134,10 +140,11 @@ def predict_nms(model, seq: torch.Tensor, mask: torch.Tensor,
     run the masked NMS per row -> (pred_cls [B, T], boxes [B, T, 2]
     float32, keep [B, T] bool), T = positions x scales.  The host evaluator
     and ``_eval_batch_device`` share it."""
-    if motion is None:
-        pred_cls, boxes = model.predict(seq, mask)
-    else:
-        pred_cls, boxes = model.predict(seq, motion, mask, motion_mask)
+    with span("eval/predict"):
+        if motion is None:
+            pred_cls, boxes = model.predict(seq, mask)
+        else:
+            pred_cls, boxes = model.predict(seq, motion, mask, motion_mask)
     total = pred_cls.shape[1]
     positions = torch.arange(total, device=pred_cls.device) // num_scales
     valid = positions[None, :] < lens[:, None]
@@ -157,12 +164,12 @@ def _eval_batch_device(model, batch: Dict[str, torch.Tensor],
     n = pred_cls.shape[1] // num_scales
     device = pred_cls.device
 
-    # max-score rasterisation over pick positions
-    pos = torch.arange(n, device=device)
-    boxes_int = boxes_c.to(torch.int32)
-    inside = ((pos >= boxes_int[..., :1]) & (pos < boxes_int[..., 1:2])
-              & keep[..., None])                             # [B, total, n]
-    score = torch.where(inside, pred_cls[..., None], 0.0).amax(dim=1)
+    with span("eval/raster"):    # max-score rasterisation over picks
+        pos = torch.arange(n, device=device)
+        boxes_int = boxes_c.to(torch.int32)
+        inside = ((pos >= boxes_int[..., :1]) & (pos < boxes_int[..., 1:2])
+                  & keep[..., None])                         # [B, total, n]
+        score = torch.where(inside, pred_cls[..., None], 0.0).amax(dim=1)
 
     summ = summ_ops.keyshot_summ(
         score, batch["picks"], batch["cps"], batch["nfps"],
@@ -172,8 +179,9 @@ def _eval_batch_device(model, batch: Dict[str, torch.Tensor],
     user_summary = batch["user_summary"]
     user_valid = batch["user_valid"]
     is_avg = batch["is_avg"]
-    f1s = summ_ops.f1_score(user_summary,
-                            summ[:, None, :].expand_as(user_summary))
+    with span("eval/f1"):
+        f1s = summ_ops.f1_score(user_summary,
+                                summ[:, None, :].expand_as(user_summary))
     f1s = torch.where(user_valid, f1s,
                       torch.where(is_avg[:, None], 0.0, -1.0))
     n_users = torch.clamp(user_valid.sum(dim=-1), min=1)
@@ -282,29 +290,33 @@ def evaluate_on_device(model, records: List[VideoRecord], nms_thresh: float,
     ``per_video`` receives one dict per video: key, fscore, diversity and
     the frame summary.
     """
-    num_scales = _num_scales_of(model)
-    if prepared is None:
-        prepared = prepare_eval_batches(records, batch_size, bucket_size,
-                                        _device_of(model),
-                                        model_needs_motion(model), mesh)
+    with span("eval/pass"):
+        num_scales = _num_scales_of(model)
+        if prepared is None:
+            prepared = prepare_eval_batches(records, batch_size, bucket_size,
+                                            _device_of(model),
+                                            model_needs_motion(model), mesh)
 
-    # launch every batch first and fetch once
-    pending = []
-    for entry in prepared:
-        fs, summs = _eval_batch_device(
-            model, entry["tb"], num_scales, nms_thresh,
-            entry["frame_bucket"], uniform_rate=entry["uniform_rate"])
-        pending.append(gather_rows(entry, fs, summs) + (entry["records"],))
+        # launch every batch first and fetch once
+        pending = []
+        for entry in prepared:
+            fs, summs = _eval_batch_device(
+                model, entry["tb"], num_scales, nms_thresh,
+                entry["frame_bucket"], uniform_rate=entry["uniform_rate"])
+            pending.append(gather_rows(entry, fs, summs) + (entry["records"],))
 
-    fscores, diversities = [], []
-    for fs, summs, recs in pending:
-        fs, summs = fs.cpu().numpy(), summs.cpu().numpy()
-        for j, r in enumerate(recs):
-            fscores.append(float(fs[j]))
-            diversities.append(summary_diversity(summs[j][:int(r.n_frames)],
-                                                 r.seq))
-            if per_video is not None:
-                per_video.append({"key": r.key, "fscore": fscores[-1],
-                                  "diversity": diversities[-1],
-                                  "summary": summs[j][:int(r.n_frames)]})
-    return float(np.mean(fscores)), float(np.mean(diversities))
+        fscores, diversities = [], []
+        for fs, summs, recs in pending:
+            with span("eval/fetch"):       # the host waits for the device
+                fs, summs = fs.cpu().numpy(), summs.cpu().numpy()
+            with span("eval/diversity"):
+                for j, r in enumerate(recs):
+                    fscores.append(float(fs[j]))
+                    diversities.append(summary_diversity(
+                        summs[j][:int(r.n_frames)], r.seq))
+                    if per_video is not None:
+                        per_video.append({
+                            "key": r.key, "fscore": fscores[-1],
+                            "diversity": diversities[-1],
+                            "summary": summs[j][:int(r.n_frames)]})
+        return float(np.mean(fscores)), float(np.mean(diversities))

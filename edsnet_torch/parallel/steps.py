@@ -28,6 +28,10 @@ Products whose operands end up mixed run in float32, as in JAX
 (models/common.py:promote).  ``remat`` recomputes the forward in the
 backward (``torch.utils.checkpoint``), replaying the dropout generators'
 states so that the recomputation draws the same masks.
+
+The tracer (utils/profiling.py) sees a step as the span
+``steps/train_step``, fenced on the model's device, over ``steps/labels``,
+``steps/forward``, ``steps/loss``, ``steps/backward`` and ``steps/adam``.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from edsnet_torch.models.common import Dropout
 from edsnet_torch.ops import losses as L
 from edsnet_torch.parallel.mesh import Mesh, all_reduce_sum
+from edsnet_torch.utils.profiling import span
 
 
 def make_optimizer(params, lr: float, weight_decay: float
@@ -200,10 +205,12 @@ def _update(model: nn.Module, optimizer: torch.optim.Optimizer,
             loss: torch.Tensor, mesh: Optional[Mesh]) -> None:
     """Backward, the gradients summed over the data ranks, Adam."""
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("steps/backward"):
+        loss.backward()
     _sum_over_data([p.grad for p in model.parameters()
                     if p.grad is not None], mesh)
-    optimizer.step()
+    with span("steps/adam"):
+        optimizer.step()
 
 
 def _weight_sum(w: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -238,26 +245,31 @@ def ab_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     own generators (models/common.py:set_dropout_generator).  ``remat``
     and ``compute_dtype`` as in the module docstring; ``batch`` holds this
     rank's rows of ``mesh``'s ``data`` axis."""
-    batch = resolve_batch(batch)
-    if cls_label is None:
-        cls_label = build_ab_cls_labels(batch, generator, neg_ratio,
-                                        inc_ratio, rows=data_rows(mesh))
-    w = (batch["video_valid"] & (batch["num_pos"] > 0)).to(torch.float32)
-    denom = _weight_sum(w, mesh)
+    with span("steps/train_step", fence=model):
+        batch = resolve_batch(batch)
+        if cls_label is None:
+            with span("steps/labels"):
+                cls_label = build_ab_cls_labels(batch, generator, neg_ratio,
+                                                inc_ratio,
+                                                rows=data_rows(mesh))
+        w = (batch["video_valid"] & (batch["num_pos"] > 0)).to(torch.float32)
+        denom = _weight_sum(w, mesh)
 
-    model.train()
-    pred_cls, pred_loc = train_forward(
-        model, batch["seq"], batch["mask"], remat, compute_dtype,
-        batch.get("motion"), batch.get("motion_mask"))
-    loc = L.ab_loc_loss(pred_loc, batch["loc_label"], cls_label)
-    cls = L.ab_cls_loss(pred_cls, cls_label)
-    loss = ((cls + lambda_reg * loc) * w).sum() / denom
+        model.train()
+        with span("steps/forward"):
+            pred_cls, pred_loc = train_forward(
+                model, batch["seq"], batch["mask"], remat, compute_dtype,
+                batch.get("motion"), batch.get("motion_mask"))
+        with span("steps/loss"):
+            loc = L.ab_loc_loss(pred_loc, batch["loc_label"], cls_label)
+            cls = L.ab_cls_loss(pred_cls, cls_label)
+            loss = ((cls + lambda_reg * loc) * w).sum() / denom
 
-    _update(model, optimizer, loss, mesh)
-    with torch.no_grad():
-        return _global_metrics({
-            "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
-            "loc_loss": (loc * w).sum() / denom}, mesh)
+        _update(model, optimizer, loss, mesh)
+        with torch.no_grad():
+            return _global_metrics({
+                "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
+                "loc_loss": (loc * w).sum() / denom}, mesh)
 
 
 def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -276,22 +288,26 @@ def af_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     nothing is drawn but dropout, from the model's own generators;
     ``remat`` and ``compute_dtype`` as in the module docstring; ``mesh``
     as ``ab_train_step``'s."""
-    batch = resolve_batch(batch)
-    w = batch["video_valid"].to(torch.float32)
-    denom = _weight_sum(w, mesh)
-    target = batch["target"]
+    with span("steps/train_step", fence=model):
+        batch = resolve_batch(batch)
+        w = batch["video_valid"].to(torch.float32)
+        denom = _weight_sum(w, mesh)
+        target = batch["target"]
 
-    model.train()
-    pred_cls, pred_loc, pred_ctr = train_forward(
-        model, batch["seq"], batch["mask"], remat, compute_dtype)
-    cls = L.af_cls_loss(pred_cls, target, cls_kind, batch["mask"])
-    loc = L.af_loc_loss(pred_loc, batch["af_loc"], target, reg_kind)
-    ctr = L.af_ctr_loss(pred_ctr, batch["af_ctr"], target)
-    loss = ((cls + lambda_reg * loc + lambda_ctr * ctr) * w).sum() / denom
+        model.train()
+        with span("steps/forward"):
+            pred_cls, pred_loc, pred_ctr = train_forward(
+                model, batch["seq"], batch["mask"], remat, compute_dtype)
+        with span("steps/loss"):
+            cls = L.af_cls_loss(pred_cls, target, cls_kind, batch["mask"])
+            loc = L.af_loc_loss(pred_loc, batch["af_loc"], target, reg_kind)
+            ctr = L.af_ctr_loss(pred_ctr, batch["af_ctr"], target)
+            loss = ((cls + lambda_reg * loc + lambda_ctr * ctr) * w).sum() \
+                / denom
 
-    _update(model, optimizer, loss, mesh)
-    with torch.no_grad():
-        return _global_metrics({
-            "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
-            "loc_loss": (loc * w).sum() / denom,
-            "ctr_loss": (ctr * w).sum() / denom}, mesh)
+        _update(model, optimizer, loss, mesh)
+        with torch.no_grad():
+            return _global_metrics({
+                "loss": loss.detach(), "cls_loss": (cls * w).sum() / denom,
+                "loc_loss": (loc * w).sum() / denom,
+                "ctr_loss": (ctr * w).sum() / denom}, mesh)

@@ -25,9 +25,17 @@ Counterpart of edsnet_tpu/trainer.py:train:
 - the motion head (``--model-depth cross-attention``) is built at the
   width of the training videos' motion features, which every training
   video must have; a model without motion drops them from its batches;
-- ``--profile`` traces epoch 1 with ``torch.profiler`` into
-  ``{model_dir}/profile`` and waits for the device after every step, so the
-  frames/s it logs are fenced.
+- ``--profile`` turns the tracer (utils/profiling.py) on for each fold and
+  traces epoch 1 with ``torch.profiler`` into ``{model_dir}/profile``,
+  the program's spans in the trace; nothing waits for the device per step:
+  the frames/s it logs are over the train steps' fenced device time, and a
+  line of every span's and counter's totals follows.
+
+The tracer's spans here: ``trainer/fold`` (a ``train_records`` call),
+``trainer/setup`` (up to the first epoch; children ``.items``, ``.model``,
+``.eval_batches``, ``.pools``), ``trainer/epoch_plan`` and
+``trainer/validation`` (fenced); the counters ``steps.steps`` and
+``steps.positions`` (valid positions) per train step.
 
 ``train`` reads a split's videos from the h5 files; ``train_records`` takes
 the videos in memory.
@@ -48,6 +56,7 @@ the one-device step.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from pathlib import Path
@@ -72,7 +81,8 @@ from edsnet_torch.parallel.steps import (ab_train_step, af_train_step,
                                          data_rows, make_optimizer)
 from edsnet_torch.parallel.tensor_parallel import shard_params_tp
 from edsnet_torch.utils import checkpoint as ckpt_lib
-from edsnet_torch.utils.profiling import StepTimer, maybe_trace
+from edsnet_torch.utils import profiling
+from edsnet_torch.utils.profiling import maybe_trace
 
 logger = logging.getLogger()
 
@@ -151,6 +161,41 @@ def train_records(args, train_videos: Sequence[VideoRecord],
     """Train on ``train_videos``, validate on ``val_videos`` and write the
     best checkpoint to ``save_path`` -> (max_val_fscore, f1_list,
     epoch_list)."""
+    # --profile traces the fold, unless the tracer is on already
+    owned = args.profile and not profiling.enabled()
+    if owned:
+        profiling.reset()
+        profiling.enable()
+    try:
+        with profiling.span("trainer/fold"), contextlib.ExitStack() as phase:
+            phase.enter_context(profiling.span("trainer/setup"))
+            out = _train_fold(args, train_videos, val_videos, save_path,
+                              phase.close)
+        if args.profile:
+            snap = profiling.snapshot()
+            logger.info(f"train throughput: {_throughput(snap)}")
+            logger.info(f"trace: {profiling.summary(snap)}")
+        return out
+    finally:
+        if owned:
+            profiling.disable()
+
+
+def _throughput(snap: Dict) -> Dict[str, float]:
+    """Frames (valid positions) trained per second of the train steps'
+    fenced time, from a tracer snapshot."""
+    frames = snap["counters"].get("steps.positions", 0)
+    seconds = snap["spans"].get("steps/train_step",
+                                {"fenced_ms": 0.0})["fenced_ms"] / 1e3
+    return {"frames": frames, "seconds": round(seconds, 4),
+            "steps": snap["counters"].get("steps.steps", 0),
+            "frames_per_sec": round(frames / seconds if seconds else 0.0, 2)}
+
+
+def _train_fold(args, train_videos: Sequence[VideoRecord],
+                val_videos: Sequence[VideoRecord], save_path, setup_done
+                ) -> Tuple[float, List[float], List[int]]:
+    """``train_records``' work; ``setup_done()`` ends the set-up span."""
     device = setup(args, check_train_supported)
     # --compute-dtype auto means float32 here: the TPU package picks bf16
     # only on a TPU backend
@@ -159,14 +204,16 @@ def train_records(args, train_videos: Sequence[VideoRecord],
     if compute_dtype != "float32":
         logger.info(f"compute dtype: {compute_dtype} "
                     f"(--compute-dtype float32 to opt out)")
-    model = get_model(args.model, **vars(args))
+    with profiling.span("trainer/setup.model"):
+        model = get_model(args.model, **vars(args))
     need_motion = model_needs_motion(model)
 
-    items = batching.prepare_items(
-        train_videos, args.model, anchor_scales=args.anchor_scales,
-        pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
-        inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size,
-        need_motion=need_motion)
+    with profiling.span("trainer/setup.items"):
+        items = batching.prepare_items(
+            train_videos, args.model, anchor_scales=args.anchor_scales,
+            pos_iou=args.pos_iou_thresh, neg_iou=args.neg_iou_thresh,
+            inc_iou=args.incomplete_iou_thresh, bucket_size=args.bucket_size,
+            need_motion=need_motion)
     skipped = len(train_videos) - len(items)
     if skipped:
         logger.info(f"skipped {skipped} videos (NaN gtscore / empty target)")
@@ -183,23 +230,25 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         # the data's motion width, which flax reads at init
         model.set_motion_width(items[0].motion.shape[-1])
     mesh, eval_mesh = training_mesh(args)
-    init_weights(model, torch.Generator().manual_seed(args.seed))
-    model = model.to(device)
-    replicate(list(model.state_dict().values()), mesh)
-    layout = None
-    tp = int(args.tensor_parallel or 0)
-    if tp > 1:
-        layout = shard_params_tp(model, mesh, args.num_head)
-        if not layout.specs:
-            logger.warning(f"--tensor-parallel {tp} has no effect: base "
-                           f"model '{args.base_model}' has no attention "
-                           f"modules")
+    with profiling.span("trainer/setup.model"):
+        init_weights(model, torch.Generator().manual_seed(args.seed))
+        model = model.to(device)
+        replicate(list(model.state_dict().values()), mesh)
+        layout = None
+        tp = int(args.tensor_parallel or 0)
+        if tp > 1:
+            layout = shard_params_tp(model, mesh, args.num_head)
+            if not layout.specs:
+                logger.warning(f"--tensor-parallel {tp} has no effect: base "
+                               f"model '{args.base_model}' has no attention "
+                               f"modules")
     rows = data_rows(mesh)
     if rows is not None:
         shard_dropout_rows(model, *rows)
-    prepared_eval = prepare_eval_batches(
-        list(val_videos), max(args.batch_size, 1), args.bucket_size, device,
-        need_motion, mesh=eval_mesh)
+    with profiling.span("trainer/setup.eval_batches"):
+        prepared_eval = prepare_eval_batches(
+            list(val_videos), max(args.batch_size, 1), args.bucket_size,
+            device, need_motion, mesh=eval_mesh)
 
     rng = np.random.RandomState(args.seed)
     generators = {
@@ -241,16 +290,18 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                                   np_rng=rng, generators=generators,
                                   layout=layout)
 
-    if args.static_batches:
-        device_batches = [
-            (shard_batch(to_device(b, device), mesh), int(b["mask"].sum()))
-            for b in batching.batch_items(items, args.batch_size,
-                                          args.bucket_size, shuffle=False,
-                                          pad_batch_to=pad_to)]
-    else:
-        pools = batching.pool_items(items, args.bucket_size)
-        pool_lengths = [p["mask"].sum(axis=1) for p in pools]
-        device_pools = [to_device(p, device) for p in pools]
+    with profiling.span("trainer/setup.pools"):
+        if args.static_batches:
+            device_batches = [
+                (shard_batch(to_device(b, device), mesh),
+                 int(b["mask"].sum()))
+                for b in batching.batch_items(items, args.batch_size,
+                                              args.bucket_size, shuffle=False,
+                                              pad_batch_to=pad_to)]
+        else:
+            pools = batching.pool_items(items, args.bucket_size)
+            pool_lengths = [p["mask"].sum(axis=1) for p in pools]
+            device_pools = [to_device(p, device) for p in pools]
 
     def compose_epoch():
         """Host plan of an epoch: (pool id, gather_idx, video_valid,
@@ -280,27 +331,27 @@ def train_records(args, train_videos: Sequence[VideoRecord],
     epoch_list: List[int] = []
     time_list: List[float] = []
     epoch_metrics: List[Dict[str, torch.Tensor]] = []
-    timer = StepTimer()
     last_sync_t, last_sync_epoch = time.time(), start_epoch - 1
     eval_every = max(args.eval_every, 1)
     profile_dir = str(Path(args.model_dir) / "profile")
+    setup_done()
 
     for epoch in range(start_epoch, args.max_epoch):
         start = time.time()
         with maybe_trace(args.profile and epoch == 1, profile_dir):
-            if args.static_batches:
-                todo = [device_batches[i]
-                        for i in rng.permutation(len(device_batches))]
-            else:
-                todo = [({"pool": device_pools[pi],
-                          "gather_idx": shard_rows(
-                              torch.from_numpy(idx), mesh).to(device),
-                          "video_valid": shard_rows(
-                              torch.from_numpy(valid), mesh).to(device)},
-                         frames)
-                        for pi, idx, valid, frames in compose_epoch()]
+            with profiling.span("trainer/epoch_plan"):
+                if args.static_batches:
+                    todo = [device_batches[i]
+                            for i in rng.permutation(len(device_batches))]
+                else:
+                    todo = [({"pool": device_pools[pi],
+                              "gather_idx": shard_rows(
+                                  torch.from_numpy(idx), mesh).to(device),
+                              "video_valid": shard_rows(
+                                  torch.from_numpy(valid), mesh).to(device)},
+                             frames)
+                            for pi, idx, valid, frames in compose_epoch()]
             for batch, frames in todo:
-                timer.start()
                 if args.model == "anchor-based":
                     metrics = ab_train_step(
                         model, optimizer, batch, generators["label"],
@@ -316,8 +367,8 @@ def train_records(args, train_videos: Sequence[VideoRecord],
                         reg_kind=args.reg_loss, remat=args.remat,
                         compute_dtype=compute_dtype, **step_mesh)
                 epoch_metrics.append(metrics)
-                timer.stop(frames,
-                           sync=metrics["loss"] if args.profile else None)
+                profiling.count("steps.steps", 1)
+                profiling.count("steps.positions", frames)
 
         time_list.append(time.time() - start)
         if epoch < 3 or (epoch + 1) % 50 == 0:
@@ -365,7 +416,8 @@ def train_records(args, train_videos: Sequence[VideoRecord],
             continue
 
         # device eval and best-parameter update; nothing waits here
-        val_f = eval_fscore_device(model, prepared_eval, args.nms_thresh)
+        with profiling.span("trainer/validation", fence=device):
+            val_f = eval_fscore_device(model, prepared_eval, args.nms_thresh)
         improved = val_f > best_f
         with torch.no_grad():
             for k, v in model.state_dict().items():
@@ -411,5 +463,4 @@ def train_records(args, train_videos: Sequence[VideoRecord],
         logger.info(f"avg time taken: {t.mean():.3f} "
                     f"max time taken: {t.max():.3f} "
                     f"min time taken: {t.min():.3f}")
-    logger.info(f"train throughput: {timer.summary()}")
     return max_val_fscore, f1_list, epoch_list
