@@ -29,12 +29,20 @@ Phases, each of which must pass (exit code 1 otherwise):
    flash_attention_dkv_tf32), with sums rounded to nearest and toward
    zero: one pass's error is its operand rounding, which both give; at
    three passes the card's accumulator, rounding toward zero after each
-   mma step, sets it, which the second gives;
+   mma step, sets it, which the second gives.  Then the NMS kernel
+   (csrc/nms.cu through ops/bbox.py:nms_masked) against its plain twin
+   nms_masked_plain, keep bit for bit at thresholds 0.5 and 0.4 with one
+   launch a call, on the eval buckets of both benchmark configurations
+   and on infer-length rows of 9216 and 30000 boxes (past the kernel's
+   shared-memory tile); then its times at one 4-scale row of 1024, 2304
+   and 4096 boxes: the kernel alone, the whole nms_masked call and the
+   twin, beside its bytes over 3.35 TB/s;
 4. the evaluate path at full width: the evaluate entry point's default
    configuration (anchor-based DSNet, attention backbone, F 1024, 8 heads,
    hidden 128, fc depth 7, scales 4 8 16 32) with seeded random weights on
    8 synthetic eccv16-shaped videos, through evaluate_on_device with batch
-   size 4; the flash kernel must launch once per eval batch, every F must
+   size 4; the flash and NMS kernels must each launch once per eval
+   batch, every F must
    lie in [0, 1], and the dense route (--no-pallas) must give the same
    per-video F and pred_cls within 1e-4; with --num-head 4 (head dim 256)
    the auto route and --use-pallas each launch the forward kernel once per
@@ -76,7 +84,8 @@ Phases, each of which must pass (exit code 1 otherwise):
    2 epochs through trainer.train_records as in phase 6 (losses finite,
    every parameter changed, the reloaded best checkpoint reproducing the
    best F within 1e-6); no kernel of the port launched in the whole
-   phase; times as in phase 7, the eval batch's breakdown and peak device
+   phase; times as in phase 7, the eval batch's breakdown (NMS on the
+   kernel route beside the plain twin) and peak device
    memory;
 9. the other token mixers (fourier at the paper orientation, performer,
    linformer, dwt, linear, lstm, bilstm, gcn) at F 1024, 8 heads and the
@@ -192,6 +201,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    kernel launched once per rank per attention call; ms of each.  One
    card cannot show NCCL across cards or the ring's real transport.
 
+Where a phase launches "no kernel" or "no kernel of the port", it counts
+the flash-attention kernels: the NMS kernel runs in every evaluation.
+
 Then the count of checks passed, a ``parallel:`` line with phase 16's
 numbers, and the last lines: a JSON object describing each kernel
 (``launches`` on
@@ -203,7 +215,8 @@ flash_fwd_cluster_kernel as two entries: head dim 512 at (8, 576, 512)
 with its launches on phase 12's anchor-based local-global evaluation and
 phase 14's, and head dim 256 at (16, 2304, 256) with its
 launches on phase 11's anchor-free deep predict, each with the replaced
-kernel's time), the nvidia-smi line, and {"ok": true, "device": {...}}.
+kernel's time, and the NMS kernel with its phase 3 times by row length),
+the nvidia-smi line, and {"ok": true, "device": {...}}.
 Without a CUDA card, or without the rest of the repository beside this
 file, it exits non-zero before printing a result.
 """
@@ -229,7 +242,7 @@ TOLS = {"highest": TOL, "default": TOL_DEFAULT}
 F32_PEAK_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 TF32_PEAK_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "nms")
 # the superseded wide-head forward kernels and the TF32 rate loop, timed
 # beside the port's kernels (never launched by the port)
 REPO = Path(__file__).resolve().parent
@@ -250,11 +263,13 @@ def ptxas_summary(log: str):
     an nvcc -Xptxas -v report."""
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?\d+(flash_\w+?_kernel)"
-                          r"I((?:Li\d+E)+)", line)
+        entry = re.search(r"Compiling entry function '\w*?\d+"
+                          r"(flash_\w+?_kernel|nms_sweep_kernel)"
+                          r"(?:I((?:Li\d+E)+))?", line)
         if entry:
-            args = ", ".join(re.findall(r"Li(\d+)E", entry.group(2)))
-            kernel, spills = f"{entry.group(1)}<{args}>", ""
+            args = ", ".join(re.findall(r"Li(\d+)E", entry.group(2) or ""))
+            kernel = f"{entry.group(1)}<{args}>" if args else entry.group(1)
+            spills = ""
         elif kernel and "spill" in line:
             spills = line.split("stack frame, ")[-1].strip()
         elif kernel and "Used" in line and "registers" in line:
@@ -505,10 +520,11 @@ def check_head_dim_routing(flash, get_model, args, tb, phases: Phases
 
 
 def eval_batch_breakdown(model, entry, nms_thresh: float
-                         ) -> Tuple[float, float, int]:
-    """(ms of one ``_eval_batch_device``, ms of its NMS, boxes) on the eval
-    batch ``entry``, in CUDA events."""
-    from edsnet_torch.ops.bbox import nms_masked
+                         ) -> Tuple[float, Tuple[float, float], int]:
+    """(ms of one ``_eval_batch_device``, ms of its NMS on the kernel route
+    and on the plain twin, boxes) on the eval batch ``entry``, in CUDA
+    events."""
+    from edsnet_torch.ops.bbox import nms_masked, nms_masked_plain
     from edsnet_torch.parallel.eval_device import (_eval_batch_device,
                                                    _num_scales_of)
 
@@ -524,18 +540,91 @@ def eval_batch_breakdown(model, entry, nms_thresh: float
         boxes_c = torch.round(torch.minimum(
             torch.clamp(boxes, min=0.0),
             tb["lens"].to(torch.float32)[:, None, None]))
-        nms_ms = cuda_ms(lambda: nms_masked(pred_cls, boxes_c, nms_thresh,
-                                            valid), iters=2, warmup=1)
+        nms_ms = tuple(cuda_ms(lambda: fn(pred_cls, boxes_c, nms_thresh,
+                                          valid), iters=2, warmup=1)
+                       for fn in (nms_masked, nms_masked_plain))
     return batch_ms, nms_ms, int(pred_cls.shape[1])
 
 
 def print_breakdown(smi: str, label: str, entry, batch_ms: float,
-                    predict_ms: float, nms_ms: float, n_boxes: int) -> None:
+                    predict_ms: float, nms_ms: Tuple[float, float],
+                    n_boxes: int) -> None:
     print(f"  [{smi}] {label} eval batch at bucket "
           f"{int(entry['tb']['seq'].shape[1])}: {batch_ms:.1f} ms = predict "
-          f"{predict_ms:.2f} ms + NMS ({n_boxes} boxes) {nms_ms:.1f} ms + "
-          f"rasterise, keyshot knapsack and F1 "
-          f"{batch_ms - predict_ms - nms_ms:.1f} ms")
+          f"{predict_ms:.2f} ms + NMS ({n_boxes} boxes) {nms_ms[0]:.3f} ms "
+          f"(plain twin {nms_ms[1]:.1f} ms) + rasterise, keyshot knapsack "
+          f"and F1 {batch_ms - predict_ms - nms_ms[0]:.1f} ms")
+
+
+# NMS rows on the card: the eval buckets of both benchmark configurations
+# (256-position buckets at 4 anchor scales and at 1) and infer.py's
+# 2100-position video (2304 padded, 4 scales), past the kernel's tile too
+NMS_ROWS = {
+    "ab-attention bucket 256 (1024 boxes)": ([200], "attention", 256),
+    "ab-attention bucket 576 (2304 boxes)": ([576], "attention", 576),
+    "ab-attention bucket 1024 (4096 boxes), 4 rows":
+        ([780, 700, 600, 513], "attention", 1024),
+    "ab-nystromformer bucket 256": ([120, 100, 64, 30], "nystrom", 256),
+    "ab-nystromformer bucket 1024": ([780], "nystrom", 1024),
+    "infer 2100 positions (9216 boxes)": ([2100], "attention", 2304),
+    "infer 7500 positions (30000 boxes)": ([7500], "attention", 7500),
+}
+NMS_TIMED = (1024, 2304, 4096)   # one 4-scale row of this many boxes
+
+
+def check_nms(phases: Phases, smi: str) -> Dict[str, dict]:
+    """The NMS kernel (``csrc/nms.cu`` through ``nms_masked``) against its
+    plain twin on the card, keep bit for bit at thresholds 0.5 and 0.4 on
+    ``NMS_ROWS``, one launch a call; then, at one row of ``NMS_TIMED``
+    boxes: the kernel alone, the whole ``nms_masked`` call and the twin, in
+    ms, beside the kernel's bytes over 3.35 TB/s."""
+    from edsnet_torch.kernels.nms import nms_sweep
+    from edsnet_torch.ops.bbox import (_alive_and_order, nms_masked,
+                                       nms_masked_plain)
+    from tests.nms_cases import ATTENTION, NYSTROM, predicted
+
+    from edsnet_torch.utils import profiling
+
+    scales = {"attention": ATTENTION, "nystrom": NYSTROM}
+    profiling.reset()
+    profiling.enable()
+    for i, (label, (lengths, head, bucket)) in enumerate(NMS_ROWS.items()):
+        row = [t.cuda() for t in predicted(i, lengths, scales[head], bucket)]
+        for thresh in (0.5, 0.4):
+            before = nms_sweep.launches
+            got = nms_masked(*row[:2], thresh, row[2])
+            torch.cuda.synchronize()
+            want = nms_masked_plain(*row[:2], thresh, row[2])
+            phases.check(torch.equal(got, want)
+                         and nms_sweep.launches == before + 1,
+                         f"nms kernel == plain twin, one launch: {label}, "
+                         f"thresh {thresh} ({int(want.sum())} of "
+                         f"{want.numel()} kept)")
+    counters = profiling.snapshot()["counters"]
+    profiling.disable()
+    profiling.reset()
+    kernel_rows = counters.get("nms.kernel_rows", 0)
+    phases.check(kernel_rows == counters["nms.rows"],
+                 f"tracer: nms.kernel_rows {kernel_rows} == nms.rows "
+                 f"{counters['nms.rows']}")
+    timing = {}
+    for n in NMS_TIMED:
+        row = [t.cuda() for t in predicted(n, [n // 4 - 20], ATTENTION,
+                                           n // 4)]
+        prepared = _alive_and_order(row[0], row[1], row[2])
+        t = {"kernel_ms": cuda_ms(lambda: nms_sweep(*prepared, 0.5),
+                                  iters=200, warmup=5),
+             "call_ms": cuda_ms(lambda: nms_masked(*row[:2], 0.5, row[2]),
+                                iters=200, warmup=5),
+             "plain_ms": cuda_ms(lambda: nms_masked_plain(*row[:2], 0.5,
+                                                          row[2]),
+                                 iters=3, warmup=1),
+             "bound_ms": 18 * n / HBM_BYTES_PER_S * 1e3}
+        timing[n] = t
+        print(f"  [{smi}] nms at n {n} (1 row): kernel {t['kernel_ms']:.4f} "
+              f"ms, nms_masked call {t['call_ms']:.4f} ms, plain twin "
+              f"{t['plain_ms']:.2f} ms, bytes bound {t['bound_ms']:.6f} ms")
+    return timing
 
 
 def dense_attention(q, k, v, mask):
@@ -3118,6 +3207,7 @@ def main() -> int:
     from edsnet_torch.evaluate import setup
     from edsnet_torch.kernels import build
     from edsnet_torch.kernels import flash_attention as flash
+    from edsnet_torch.kernels.nms import nms_sweep
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
     from edsnet_torch.parallel.eval_device import (batch_eval_device,
@@ -3142,6 +3232,7 @@ def main() -> int:
     fwd_err = check_flash(flash, phases)
     check_flash_nan(flash, phases)
     dq_err, dkv_err = check_flash_backward(flash, phases)
+    nms_timing = check_nms(phases, smi)
 
     print("phase: evaluate path at full width")
     args = config_lib.get_arguments(["anchor-based", "--seed",
@@ -3163,6 +3254,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash.flash_attention_fwd.launches = 0
+    nms_before = nms_sweep.launches
     t0 = time.perf_counter()
     per_video = []
     mean_f, mean_div = evaluate_on_device(
@@ -3171,6 +3263,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = flash.flash_attention_fwd.launches
+    nms_launches = nms_sweep.launches - nms_before
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  mean F {mean_f:.6f}, mean diversity {mean_div:.6f}, peak "
           f"device memory {peak_gb:.2f} GiB")
@@ -3179,6 +3272,9 @@ def main() -> int:
               f"{int(p['summary'].sum())}/{p['summary'].size}")
     phases.check(launches == n_batches,
                  f"flash kernel launches {launches} == eval batches "
+                 f"{n_batches}")
+    phases.check(nms_launches == n_batches,
+                 f"nms kernel launches {nms_launches} == eval batches "
                  f"{n_batches}")
     phases.check(all(0.0 <= p["fscore"] <= 1.0 for p in per_video)
                  and len(per_video) == len(records), "every F in [0, 1]")
@@ -3358,6 +3454,12 @@ def main() -> int:
                             "previous_ms": t["default"]["previous_ms"],
                             "bound_ms": t["default"]["bound_ms"]}}
         kernels.append(entry)
+    kernels.append({
+        "name": "nms_sweep_kernel (nms_sweep)", "route": "cuda",
+        "source": "edsnet_torch/csrc/nms.cu",
+        "replaces": "edsnet_tpu/ops/bbox.py:125 (nms_masked, a lax.scan)",
+        "launches": nms_launches, "max_abs_err": 0,
+        "by_boxes": {str(n): t for n, t in nms_timing.items()}})
     print("parallel: " + json.dumps({"device": smi, **parallel}))
     print(json.dumps({"kernels": kernels,
                       "tf32_mma_tflops": timing["tf32_mma_tflops"]}))

@@ -4,7 +4,9 @@ Counterpart of edsnet_tpu/ops/bbox.py: ``lr2cw`` / ``cw2lr``, ``iou_lr``
 with the reference's convex-hull denominator, the host ``seq2bbox``, and
 ``nms_masked`` with the deterministic tie order (stable ascending argsort,
 flipped: among equal scores the larger original index goes first).  The
-batch dimension is written out instead of vmapped.
+batch dimension is written out instead of vmapped.  ``nms_masked`` runs the
+JAX package's ``lax.scan`` as one CUDA kernel on the card
+(``csrc/nms.cu``) and as the plain twin ``nms_masked_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from edsnet_torch.kernels.nms import nms_sweep
 from edsnet_torch.utils.profiling import count, count_nonzero, span
 
 
@@ -57,6 +60,44 @@ def iou_lr(anchor_bbox: torch.Tensor, target_bbox: torch.Tensor
     return inter / union
 
 
+def _alive_and_order(scores: torch.Tensor, bboxes: torch.Tensor,
+                     valid: Optional[torch.Tensor]):
+    """(float32 boxes, alive [B, N] bool, order [B, N] int64): a box is
+    alive where left < right and ``valid`` holds; the order is a stable
+    ascending argsort of the float32 scores, flipped, so that among equal
+    scores the larger original index goes first."""
+    bboxes = bboxes.to(torch.float32)
+    alive = bboxes[..., 0] < bboxes[..., 1]
+    if valid is not None:
+        alive = alive & valid.to(torch.bool)
+    order = torch.argsort(scores.to(torch.float32), dim=-1,
+                          stable=True).flip(-1)
+    return bboxes, alive, order
+
+
+def nms_masked_plain(scores: torch.Tensor, bboxes: torch.Tensor,
+                     thresh: float, valid: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Plain PyTorch twin of the NMS kernel (``csrc/nms.cu``), with the
+    arguments and result of ``nms_masked``.
+
+    The suppression matrix is built once in score-sorted order.  The greedy
+    pass then walks it with two tensor ops per position and no host sync.
+    IoU is symmetric, so with the diagonal cleared a kept box is never
+    suppressed later, and the surviving ``alive`` mask is the kept set.
+    """
+    bboxes, alive, order = _alive_and_order(scores, bboxes, valid)
+    b, n = alive.shape
+    boxes_s = torch.gather(bboxes, 1, order[..., None].expand(b, n, 2))
+    suppress = iou_lr(boxes_s[:, :, None, :],
+                      boxes_s[:, None, :, :]) >= thresh
+    suppress.diagonal(dim1=1, dim2=2).fill_(False)
+    alive_s = torch.gather(alive, 1, order)
+    for i in range(n):
+        alive_s.masked_fill_(alive_s[:, i:i + 1] & suppress[:, i], False)
+    return torch.zeros_like(alive).scatter_(1, order, alive_s)
+
+
 def nms_masked(scores: torch.Tensor, bboxes: torch.Tensor, thresh: float,
                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy score-sorted NMS over 1-D LR boxes, per batch row.
@@ -67,31 +108,21 @@ def nms_masked(scores: torch.Tensor, bboxes: torch.Tensor, thresh: float,
     :param valid: optional [B, N] bool mask of live entries.
     :return: keep [B, N] bool over the original order.
 
-    The suppression matrix is built once in score-sorted order.  The greedy
-    pass then walks it with two tensor ops per position and no host sync.
-    IoU is symmetric, so with the diagonal cleared a kept box is never
-    suppressed later, and the surviving ``alive`` mask is the kept set.
-    The tracer's span ``eval/nms`` covers the call; its counters add the
-    rows (``nms.rows``), the loop's trips (``nms.iterations``), the box
-    slots walked (``nms.slots``) and the boxes kept (``nms.kept``).
+    CUDA tensors launch the kernel (``kernels/nms.py:nms_sweep``) once, for
+    the whole sweep of every row; CPU tensors take the plain twin
+    ``nms_masked_plain``.  The tracer's span ``eval/nms`` covers the call;
+    its counters add the rows (``nms.rows``), the sweep's slots in order
+    (``nms.iterations``), the box slots (``nms.slots``), the boxes kept
+    (``nms.kept``) and the rows the kernel swept (``nms.kernel_rows``).
     """
     with span("eval/nms"):
-        scores = scores.to(torch.float32)
-        bboxes = bboxes.to(torch.float32)
         b, n = scores.shape
-        alive = bboxes[..., 0] < bboxes[..., 1]
-        if valid is not None:
-            alive = alive & valid.to(torch.bool)
-
-        order = torch.argsort(scores, dim=-1, stable=True).flip(-1)
-        boxes_s = torch.gather(bboxes, 1, order[..., None].expand(b, n, 2))
-        suppress = iou_lr(boxes_s[:, :, None, :],
-                          boxes_s[:, None, :, :]) >= thresh
-        suppress.diagonal(dim1=1, dim2=2).fill_(False)
-        alive_s = torch.gather(alive, 1, order)
-        for i in range(n):
-            alive_s.masked_fill_(alive_s[:, i:i + 1] & suppress[:, i], False)
-        keep = torch.zeros_like(alive).scatter_(1, order, alive_s)
+        if scores.device.type == "cpu":
+            keep = nms_masked_plain(scores, bboxes, thresh, valid)
+        else:
+            keep = nms_sweep(*_alive_and_order(scores, bboxes, valid),
+                             thresh)
+            count("nms.kernel_rows", b)
         count("nms.rows", b)
         count("nms.iterations", n)
         count("nms.slots", b * n)

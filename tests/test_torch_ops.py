@@ -12,7 +12,9 @@ from edsnet_tpu.ops import anchors as jax_anchors
 from edsnet_tpu.ops import bbox as jax_bbox
 from edsnet_tpu.ops import knapsack as jax_knapsack
 from edsnet_tpu.ops import summary as jax_summary
+from edsnet_torch.kernels import nms as nms_kernel
 from edsnet_torch.ops import anchors, bbox, knapsack, summary
+from tests.nms_cases import CASES, THRESHOLDS
 
 
 def test_get_anchors():
@@ -52,6 +54,31 @@ def test_nms_masked_ties_and_invalid_boxes(seed):
                      for i in range(b)])
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_nms_plain_twin_matches_jax(case, thresh):
+    scores, boxes, valid = CASES[case]()
+    got = bbox.nms_masked_plain(scores, boxes, thresh, valid)
+    want = np.stack([np.asarray(jax_bbox.nms_masked(
+        scores[i].numpy(), boxes[i].numpy(), thresh, valid[i].numpy()))
+        for i in range(scores.shape[0])])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_nms_masked_on_cpu_takes_the_twin():
+    scores, boxes, valid = CASES["attention-300-b4"]()
+    before = nms_kernel.nms_sweep.launches
+    got = bbox.nms_masked(scores, boxes, 0.5, valid)
+    assert nms_kernel.nms_sweep.launches == before
+    want = bbox.nms_masked_plain(scores, boxes, 0.5, valid)
+    assert got.dtype == torch.bool and got.shape == scores.shape
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert want.any() and not want.all()
+    with pytest.raises(ValueError, match="no kernel for cpu"):
+        nms_kernel.nms_sweep(boxes, valid, torch.zeros_like(scores).long(),
+                             0.5)
 
 
 def test_knapsack_same_selected_set_fuzz():

@@ -141,6 +141,7 @@ def test_nms_counters_exact(tracer, b, n, seed):
     assert c["nms.rows"] == b and c["nms.iterations"] == n
     assert c["nms.slots"] == b * n
     assert c["nms.kept"] == int(keep.sum()) > 0
+    assert c.get("nms.kernel_rows", 0) == 0         # the CPU takes the twin
 
 
 @pytest.mark.parametrize("b,n,seed", [(1, 16, 0), (4, 10, 1)])
