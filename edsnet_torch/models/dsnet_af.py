@@ -6,6 +6,10 @@ Counterpart of edsnet_tpu/models/dsnet_af.py: ``_AFHeads``,
 in (0, 1), pred_loc [B, N, 2] = exp(raw) (l, r) extents and pred_ctr
 [B, N] in (0, 1); ``predict`` scales cls by centerness and the mask,
 normalises each row by its max and decodes (i - l, i + r + 1) boxes.
+The tracer (utils/profiling.py) sees that decode as the span
+``af/decode``, and counts the valid positions decoded (``af.boxes``) and
+the valid boxes that reach past [0, len) before ``predict_nms`` clips
+them (``af.clipped``).
 
 Unlike the anchor-based ``DSNet``, the trunk's output is not masked: the
 mask enters only through ``cls * mask`` in ``predict``, as in JAX.
@@ -24,6 +28,7 @@ from edsnet_torch.models.common import Dropout, LayerNorm, Linear
 from edsnet_torch.models.dsnet import _FcTrunk
 from edsnet_torch.models.encoder import LocalGlobalEncoder
 from edsnet_torch.ops.anchor_free import offset2bbox
+from edsnet_torch.utils.profiling import count, count_nonzero, enabled, span
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -55,6 +60,21 @@ def _af_predict(pred_cls: torch.Tensor, pred_loc: torch.Tensor,
     return cls, offset2bbox(pred_loc)
 
 
+def _count_decode(boxes: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+    """The tracer's counters of a decode: ``af.boxes``, the valid
+    positions (B x N without a mask), and ``af.clipped``, the valid boxes
+    with left < 0 or right > the row's length."""
+    if mask is None:
+        count("af.boxes", boxes.shape[0] * boxes.shape[1])
+        out = (boxes[..., 0] < 0) | (boxes[..., 1] > boxes.shape[1])
+    else:
+        valid = mask.to(torch.bool)
+        count_nonzero("af.boxes", valid)
+        lens = valid.sum(dim=-1, keepdim=True)
+        out = ((boxes[..., 0] < 0) | (boxes[..., 1] > lens)) & valid
+    count_nonzero("af.clipped", out)
+
+
 class _AnchorFree(nn.Module):
     """The shared deterministic decode of the anchor-free heads."""
 
@@ -64,7 +84,12 @@ class _AnchorFree(nn.Module):
         if self.training:
             raise RuntimeError(f"{type(self).__name__}.predict is the "
                                f"deterministic pass: call model.eval() first")
-        return _af_predict(*self(x, mask), mask)
+        outputs = self(x, mask)
+        with span("af/decode"):
+            scores, boxes = _af_predict(*outputs, mask)
+        if enabled():
+            _count_decode(boxes, mask)
+        return scores, boxes
 
 
 class DSNetAF(_AnchorFree):
