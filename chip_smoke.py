@@ -36,13 +36,21 @@ Phases, each of which must pass (exit code 1 otherwise):
    and on infer-length rows of 9216 and 30000 boxes (past the kernel's
    shared-memory tile); then its times at one 4-scale row of 1024, 2304
    and 4096 boxes: the kernel alone, the whole nms_masked call and the
-   twin, beside its bytes over 3.35 TB/s;
+   twin, beside its bytes over 3.35 TB/s.  Then the knapsack kernel
+   (csrc/knapsack.cu through ops/knapsack.py:knapsack) against its plain
+   twin knapsack_plain, the selection bit for bit with one launch a call,
+   on every case of tests/knapsack_cases.py (the cells' shapes, the
+   global-bits and global-DP paths, the edge cases); then its times on
+   one shot row at (N, C) = (80, 1845), (128, 1845), (192, 3074) and
+   (576, 8603): the kernel alone, the whole knapsack call and the twin's
+   two loops on the card, beside its bytes over 3.35 TB/s and its N x C
+   compare-adds at the f32 lane rate;
 4. the evaluate path at full width: the evaluate entry point's default
    configuration (anchor-based DSNet, attention backbone, F 1024, 8 heads,
    hidden 128, fc depth 7, scales 4 8 16 32) with seeded random weights on
    8 synthetic eccv16-shaped videos, through evaluate_on_device with batch
-   size 4; the flash and NMS kernels must each launch once per eval
-   batch, every F must
+   size 4; the flash, NMS and knapsack kernels must each launch once per
+   eval batch, every F must
    lie in [0, 1], and the dense route (--no-pallas) must give the same
    per-video F and pred_cls within 1e-4; with --num-head 4 (head dim 256)
    the auto route and --use-pallas each launch the forward kernel once per
@@ -202,7 +210,8 @@ Phases, each of which must pass (exit code 1 otherwise):
    card cannot show NCCL across cards or the ring's real transport.
 
 Where a phase launches "no kernel" or "no kernel of the port", it counts
-the flash-attention kernels: the NMS kernel runs in every evaluation.
+the flash-attention kernels: the NMS and knapsack kernels run in every
+evaluation.
 
 Then the count of checks passed, a ``parallel:`` line with phase 16's
 numbers, and the last lines: a JSON object describing each kernel
@@ -215,7 +224,8 @@ flash_fwd_cluster_kernel as two entries: head dim 512 at (8, 576, 512)
 with its launches on phase 12's anchor-based local-global evaluation and
 phase 14's, and head dim 256 at (16, 2304, 256) with its
 launches on phase 11's anchor-free deep predict, each with the replaced
-kernel's time, and the NMS kernel with its phase 3 times by row length),
+kernel's time, and the NMS and knapsack kernels with their phase 3 times
+by row length),
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Without a CUDA card, or without the rest of the repository beside this
 file, it exits non-zero before printing a result.
@@ -242,7 +252,8 @@ TOLS = {"highest": TOL, "default": TOL_DEFAULT}
 F32_PEAK_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 TF32_PEAK_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "nms")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "nms",
+                  "knapsack")
 # the superseded wide-head forward kernels and the TF32 rate loop, timed
 # beside the port's kernels (never launched by the port)
 REPO = Path(__file__).resolve().parent
@@ -264,10 +275,11 @@ def ptxas_summary(log: str):
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\w*?\d+"
-                          r"(flash_\w+?_kernel|nms_sweep_kernel)"
-                          r"(?:I((?:Li\d+E)+))?", line)
+                          r"(flash_\w+?_kernel|nms_sweep_kernel"
+                          r"|knapsack_kernel)(?:I((?:L[ib]\d+E)+))?", line)
         if entry:
-            args = ", ".join(re.findall(r"Li(\d+)E", entry.group(2) or ""))
+            args = ", ".join(re.findall(r"L[ib](\d+)E",
+                                        entry.group(2) or ""))
             kernel = f"{entry.group(1)}<{args}>" if args else entry.group(1)
             spills = ""
         elif kernel and "spill" in line:
@@ -624,6 +636,70 @@ def check_nms(phases: Phases, smi: str) -> Dict[str, dict]:
         print(f"  [{smi}] nms at n {n} (1 row): kernel {t['kernel_ms']:.4f} "
               f"ms, nms_masked call {t['call_ms']:.4f} ms, plain twin "
               f"{t['plain_ms']:.2f} ms, bytes bound {t['bound_ms']:.6f} ms")
+    return timing
+
+
+# (N, max_capacity, frames, frame bucket) of the knapsack's timed rows:
+# the eval cells' (80 and 128 shots, 12288-frame bucket), train-tvsum's
+# largest and a 30 min video's (take bits in global memory)
+KNAPSACK_TIMED = ((80, 1844, 7000, 12288), (128, 1844, 11700, 12288),
+                  (192, 3073, 18000, 20480), (576, 8602, 54000, 57344))
+
+
+def check_knapsack(phases: Phases, smi: str) -> Dict[str, dict]:
+    """The knapsack kernel (``csrc/knapsack.cu`` through ``knapsack``)
+    against its plain twin on the card, the selection bit for bit on every
+    case of ``tests/knapsack_cases.py``, one launch a call; then, on one
+    shot row of each ``KNAPSACK_TIMED`` shape: the kernel alone, the whole
+    ``knapsack`` call and the twin, in ms, beside the kernel's bytes over
+    3.35 TB/s and its compare-adds at the f32 lane rate."""
+    from edsnet_torch.kernels.knapsack import knapsack_dp
+    from edsnet_torch.ops.knapsack import knapsack, knapsack_plain
+    from edsnet_torch.utils import profiling
+    from tests.knapsack_cases import CASES, shots
+
+    profiling.reset()
+    profiling.enable()
+    for label, make in CASES.items():
+        values, weights, capacity, cap_max = make()
+        values, weights, capacity = (t.cuda() for t in
+                                     (values, weights, capacity))
+        before = knapsack_dp.launches
+        got = knapsack(values, weights, capacity, cap_max)
+        torch.cuda.synchronize()
+        want = knapsack_plain(values, weights, capacity, cap_max)
+        phases.check(torch.equal(got, want)
+                     and knapsack_dp.launches == before + 1,
+                     f"knapsack kernel == plain twin, one launch: {label} "
+                     f"({int(want.sum())} of {want.numel()} taken)")
+    counters = profiling.snapshot()["counters"]
+    profiling.disable()
+    profiling.reset()
+    kernel_rows = counters.get("knapsack.kernel_rows", 0)
+    phases.check(kernel_rows == counters["knapsack.rows"],
+                 f"tracer: knapsack.kernel_rows {kernel_rows} == "
+                 f"knapsack.rows {counters['knapsack.rows']}")
+    timing = {}
+    for i, (n, cap_max, frames, bucket) in enumerate(KNAPSACK_TIMED):
+        values, weights, capacity, got_max = shots(100 + i, [frames], n,
+                                                   bucket)
+        assert got_max == cap_max, (got_max, cap_max)
+        args = [t.cuda().to(torch.int32) for t in (values, weights,
+                                                     capacity)]
+        t = {"kernel_ms": cuda_ms(lambda: knapsack_dp(*args, cap_max),
+                                  iters=200, warmup=5),
+             "call_ms": cuda_ms(lambda: knapsack(*args, cap_max),
+                                iters=200, warmup=5),
+             "plain_ms": cuda_ms(lambda: knapsack_plain(*args, cap_max),
+                                 iters=3, warmup=1),
+             "capacity": int(capacity[0]),
+             "bound_ms": max(9 * n / HBM_BYTES_PER_S,
+                             n * (cap_max + 1) / (F32_PEAK_FLOPS / 2)) * 1e3}
+        timing[f"{n}x{cap_max + 1}"] = t
+        print(f"  [{smi}] knapsack at (N, C) ({n}, {cap_max + 1}), capacity "
+              f"{t['capacity']} (1 row): kernel {t['kernel_ms']:.4f} ms, "
+              f"knapsack call {t['call_ms']:.4f} ms, plain twin "
+              f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.7f} ms")
     return timing
 
 
@@ -3207,6 +3283,7 @@ def main() -> int:
     from edsnet_torch.evaluate import setup
     from edsnet_torch.kernels import build
     from edsnet_torch.kernels import flash_attention as flash
+    from edsnet_torch.kernels.knapsack import knapsack_dp
     from edsnet_torch.kernels.nms import nms_sweep
     from edsnet_torch.models.common import init_weights
     from edsnet_torch.models.model_zoo import get_model
@@ -3233,6 +3310,7 @@ def main() -> int:
     check_flash_nan(flash, phases)
     dq_err, dkv_err = check_flash_backward(flash, phases)
     nms_timing = check_nms(phases, smi)
+    knapsack_timing = check_knapsack(phases, smi)
 
     print("phase: evaluate path at full width")
     args = config_lib.get_arguments(["anchor-based", "--seed",
@@ -3255,6 +3333,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     flash.flash_attention_fwd.launches = 0
     nms_before = nms_sweep.launches
+    knapsack_before = knapsack_dp.launches
     t0 = time.perf_counter()
     per_video = []
     mean_f, mean_div = evaluate_on_device(
@@ -3264,6 +3343,7 @@ def main() -> int:
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = flash.flash_attention_fwd.launches
     nms_launches = nms_sweep.launches - nms_before
+    knapsack_launches = knapsack_dp.launches - knapsack_before
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  mean F {mean_f:.6f}, mean diversity {mean_div:.6f}, peak "
           f"device memory {peak_gb:.2f} GiB")
@@ -3276,6 +3356,9 @@ def main() -> int:
     phases.check(nms_launches == n_batches,
                  f"nms kernel launches {nms_launches} == eval batches "
                  f"{n_batches}")
+    phases.check(knapsack_launches == n_batches,
+                 f"knapsack kernel launches {knapsack_launches} == eval "
+                 f"batches {n_batches}")
     phases.check(all(0.0 <= p["fscore"] <= 1.0 for p in per_video)
                  and len(per_video) == len(records), "every F in [0, 1]")
 
@@ -3460,6 +3543,12 @@ def main() -> int:
         "replaces": "edsnet_tpu/ops/bbox.py:125 (nms_masked, a lax.scan)",
         "launches": nms_launches, "max_abs_err": 0,
         "by_boxes": {str(n): t for n, t in nms_timing.items()}})
+    kernels.append({
+        "name": "knapsack_kernel (knapsack_dp)", "route": "cuda",
+        "source": "edsnet_torch/csrc/knapsack.cu",
+        "replaces": "edsnet_tpu/ops/knapsack.py:knapsack_jax (two lax.scans)",
+        "launches": knapsack_launches, "max_abs_err": 0,
+        "by_shape": knapsack_timing})
     print("parallel: " + json.dumps({"device": smi, **parallel}))
     print(json.dumps({"kernels": kernels,
                       "tf32_mma_tflops": timing["tf32_mma_tflops"]}))

@@ -4,8 +4,11 @@ Counterpart of edsnet_tpu/ops/knapsack.py: its host ``knapsack`` is
 ``knapsack_host`` here (the dense DP ``_knapsack_numpy`` or the native C++
 branch and bound; it serves training-label preparation and the host
 evaluator), and its ``knapsack_jax`` is the batched device ``knapsack``.
-The DPs keep the same reverse backtrack, so the selected set matches, not
-only the value.
+On a CUDA tensor that is one launch of the kernel ``csrc/knapsack.cu``
+(``kernels/knapsack.py:knapsack_dp``), on a CPU tensor its plain twin
+``knapsack_plain``, JAX's two scans written as two loops.  The DPs keep
+the same reverse backtrack, so the selected set matches, not only the
+value.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Iterable, List
 import numpy as np
 import torch
 
+from edsnet_torch.kernels.knapsack import knapsack_dp
 from edsnet_torch.native import load as _native_load
 from edsnet_torch.utils.profiling import count, count_nonzero, span
 
@@ -76,21 +80,12 @@ def knapsack_host(values: Iterable[int], weights: Iterable[int],
     return _knapsack_numpy(values, weights, capacity)
 
 
-def knapsack(values: torch.Tensor, weights: torch.Tensor,
-             capacity: torch.Tensor, max_capacity: int) -> torch.Tensor:
-    """Per-row exact 0/1 knapsack.
-
-    :param values: [B, N] int item values (padding items must have value 0).
-    :param weights: [B, N] int item weights (>= 0).
-    :param capacity: [B] int runtime capacities (<= max_capacity).
-    :param max_capacity: DP-table width.
-    :return: [B, N] bool mask of selected items.
-
-    The tracer's spans ``knapsack/dp`` and ``knapsack/backtrack`` cover the
-    two loops; its counters add the rows (``knapsack.rows``), the loops'
-    trips (``knapsack.steps``), the item slots (``knapsack.slots``) and
-    the real items, of weight above 0 (``knapsack.live``).
-    """
+def knapsack_plain(values: torch.Tensor, weights: torch.Tensor,
+                   capacity: torch.Tensor, max_capacity: int) -> torch.Tensor:
+    """Plain PyTorch twin of the knapsack kernel (``csrc/knapsack.cu``),
+    with the arguments and result of ``knapsack``: JAX's two scans as two
+    loops, about 12 launches an item in the DP (the tracer's span
+    ``knapsack/dp``) and 5 in the backtrack (``knapsack/backtrack``)."""
     values = values.to(torch.int32)
     weights = weights.to(torch.int32)
     capacity = capacity.to(torch.int32)
@@ -129,6 +124,40 @@ def knapsack(values: torch.Tensor, weights: torch.Tensor,
             t = takes[rows, j, c]
             selected[:, j] = t
             c = torch.where(t, torch.clamp(c - weights[:, j], min=0), c)
+    return selected
+
+
+def knapsack(values: torch.Tensor, weights: torch.Tensor,
+             capacity: torch.Tensor, max_capacity: int) -> torch.Tensor:
+    """Per-row exact 0/1 knapsack.
+
+    :param values: [B, N] int item values (padding items must have value 0).
+    :param weights: [B, N] int item weights (>= 0).
+    :param capacity: [B] int runtime capacities (0 <= capacity <=
+        max_capacity).
+    :param max_capacity: DP-table width.
+    :return: [B, N] bool mask of selected items.
+
+    CUDA tensors launch the kernel (``kernels/knapsack.py:knapsack_dp``)
+    once, for the DP and backtrack of every row, inside the tracer's span
+    ``knapsack/dp``; CPU tensors take the plain twin ``knapsack_plain``,
+    whose two loops are the spans ``knapsack/dp`` and
+    ``knapsack/backtrack``.  The tracer's counters add the rows
+    (``knapsack.rows``), the two loops' trips, walked inside the kernel on
+    the card (``knapsack.steps``, 2 N), the item slots (``knapsack.slots``),
+    the real items, of weight above 0 (``knapsack.live``), and the rows the
+    kernel solved (``knapsack.kernel_rows``).
+    """
+    values = values.to(torch.int32)
+    weights = weights.to(torch.int32)
+    capacity = capacity.to(torch.int32)
+    b, n = values.shape
+    if values.device.type == "cpu":
+        selected = knapsack_plain(values, weights, capacity, max_capacity)
+    else:
+        with span("knapsack/dp"):
+            selected = knapsack_dp(values, weights, capacity, max_capacity)
+        count("knapsack.kernel_rows", b)
     count("knapsack.rows", b)
     count("knapsack.steps", 2 * n)
     count("knapsack.slots", b * n)

@@ -12,8 +12,10 @@ from edsnet_tpu.ops import anchors as jax_anchors
 from edsnet_tpu.ops import bbox as jax_bbox
 from edsnet_tpu.ops import knapsack as jax_knapsack
 from edsnet_tpu.ops import summary as jax_summary
+from edsnet_torch.kernels import knapsack as knapsack_kernel
 from edsnet_torch.kernels import nms as nms_kernel
 from edsnet_torch.ops import anchors, bbox, knapsack, summary
+from tests.knapsack_cases import CASES as KNAPSACK_CASES
 from tests.nms_cases import CASES, THRESHOLDS
 
 
@@ -97,6 +99,35 @@ def test_knapsack_same_selected_set_fuzz():
                                 torch.from_numpy(capacity), max_capacity)
         want = np.asarray(solve(values, weights, capacity))
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{seed}")
+
+
+@pytest.mark.parametrize("case", sorted(KNAPSACK_CASES))
+def test_knapsack_cases_same_selected_set(case):
+    """The shared cases (the cells' shapes, the kernel's global-memory
+    paths, the edge cases) through ``knapsack`` on the CPU, which takes
+    the plain twin, against ``knapsack_jax`` row by row."""
+    values, weights, capacity, max_capacity = KNAPSACK_CASES[case]()
+    got = knapsack.knapsack(values, weights, capacity, max_capacity)
+    solve = jax.jit(jax.vmap(partial(jax_knapsack.knapsack_jax,
+                                     max_capacity=max_capacity)))
+    want = np.asarray(solve(values.numpy().astype(np.int32),
+                            weights.numpy().astype(np.int32),
+                            capacity.numpy().astype(np.int32)))
+    assert got.dtype == torch.bool and got.shape == values.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ((weights * got).sum(dim=1) <= capacity).all()
+
+
+def test_knapsack_on_cpu_takes_the_twin():
+    values, weights, capacity, max_capacity = KNAPSACK_CASES["mixed-b8"]()
+    before = knapsack_kernel.knapsack_dp.launches
+    got = knapsack.knapsack(values, weights, capacity, max_capacity)
+    assert knapsack_kernel.knapsack_dp.launches == before
+    want = knapsack.knapsack_plain(values, weights, capacity, max_capacity)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="no kernel for cpu"):
+        knapsack_kernel.knapsack_dp(values.int(), weights.int(),
+                                    capacity.int(), max_capacity)
 
 
 def _summ_inputs(rng, uniform):

@@ -153,6 +153,7 @@ def test_knapsack_counters_exact(tracer, b, n, seed):
     assert c["knapsack.rows"] == b and c["knapsack.steps"] == 2 * n
     assert c["knapsack.slots"] == b * n
     assert c["knapsack.live"] == int((weights > 0).sum()) < b * n
+    assert c.get("knapsack.kernel_rows", 0) == 0    # the CPU takes the twin
     assert {"knapsack/dp", "knapsack/backtrack"} <= set(snap["spans"])
 
 
