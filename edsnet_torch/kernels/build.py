@@ -3,9 +3,8 @@
 Each ``csrc/<name>.cu`` becomes ``kernels/_build/lib<name>-<hash>.so`` (a
 plain C interface, no PyTorch headers), keyed by the content of the source
 and of the ``csrc/*.cuh`` headers, so an edited source or header rebuilds.
-A source outside ``csrc/`` is named by its path (``tools/x.cu``); it is
-compiled with ``csrc/`` on the include path and keyed by ``csrc/*.cu`` too,
-which it may include.  The build runs at first use; ``build(*names)``
+A source outside ``csrc/`` is named by its path (``tools/x.cu``) and
+compiled with ``csrc/`` on the include path.  The build runs at first use; ``build(*names)``
 starts one nvcc per missing library, all at once, and waits for them.
 """
 from __future__ import annotations
@@ -44,12 +43,9 @@ def _source(name: str) -> Path:
 
 
 def _lib_path(name: str) -> Path:
-    """Keyed by the source, every header in csrc/ (and, for a source
-    outside csrc/, every source there) and the flags."""
+    """Keyed by the source, every header in csrc/ and the flags."""
     source = _source(name)
     deps = sorted(SRC_DIR.glob("*.cuh"))
-    if source.parent.resolve() != SRC_DIR:
-        deps += sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(source.read_bytes()
                             + b"".join(p.read_bytes() for p in deps)
                             + " ".join(ARCH_FLAGS).encode()).hexdigest()

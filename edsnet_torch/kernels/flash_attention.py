@@ -16,8 +16,8 @@ near f32's; ``"default"`` runs one TF32 pass (operands rounded to 10
 mantissa bits).  ``tf32_round``, ``tf32_matmul`` and the kernels'
 computations built on them (``flash_attention_tf32``,
 ``flash_attention_dq_tf32``, ``flash_attention_dkv_tf32``) repeat that
-arithmetic in plain PyTorch for the tests and ``chip_smoke.py``; the
-port's paths never call them.  The twins are exact f32 and ignore
+arithmetic in plain PyTorch for the tests only; the port's paths never
+call them.  The twins are exact f32 and ignore
 ``precision``, as JAX's interpret mode does on the CPU.
 
 Semantics, shared by kernel and twin: scores ``(q * D^-1/2) k^T``; key mask

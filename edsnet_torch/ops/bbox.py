@@ -112,8 +112,8 @@ def nms_masked(scores: torch.Tensor, bboxes: torch.Tensor, thresh: float,
     the whole sweep of every row; CPU tensors take the plain twin
     ``nms_masked_plain``.  The tracer's span ``eval/nms`` covers the call;
     its counters add the rows (``nms.rows``), the sweep's slots in order
-    (``nms.iterations``), the box slots (``nms.slots``), the boxes kept
-    (``nms.kept``) and the rows the kernel swept (``nms.kernel_rows``).
+    (``nms.iterations``), the box slots (``nms.slots``) and the boxes kept
+    (``nms.kept``).
     """
     with span("eval/nms"):
         b, n = scores.shape
@@ -122,7 +122,6 @@ def nms_masked(scores: torch.Tensor, bboxes: torch.Tensor, thresh: float,
         else:
             keep = nms_sweep(*_alive_and_order(scores, bboxes, valid),
                              thresh)
-            count("nms.kernel_rows", b)
         count("nms.rows", b)
         count("nms.iterations", n)
         count("nms.slots", b * n)

@@ -144,9 +144,8 @@ def knapsack(values: torch.Tensor, weights: torch.Tensor,
     whose two loops are the spans ``knapsack/dp`` and
     ``knapsack/backtrack``.  The tracer's counters add the rows
     (``knapsack.rows``), the two loops' trips, walked inside the kernel on
-    the card (``knapsack.steps``, 2 N), the item slots (``knapsack.slots``),
-    the real items, of weight above 0 (``knapsack.live``), and the rows the
-    kernel solved (``knapsack.kernel_rows``).
+    the card (``knapsack.steps``, 2 N), the item slots (``knapsack.slots``)
+    and the real items, of weight above 0 (``knapsack.live``).
     """
     values = values.to(torch.int32)
     weights = weights.to(torch.int32)
@@ -157,7 +156,6 @@ def knapsack(values: torch.Tensor, weights: torch.Tensor,
     else:
         with span("knapsack/dp"):
             selected = knapsack_dp(values, weights, capacity, max_capacity)
-        count("knapsack.kernel_rows", b)
     count("knapsack.rows", b)
     count("knapsack.steps", 2 * n)
     count("knapsack.slots", b * n)

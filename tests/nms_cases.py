@@ -73,10 +73,12 @@ CASES = {
     "score-ties-b4": lambda: scattered(11, 4, 96, ties=True),
 }
 
-# rows longer than the cells': a 4-scale bucket at 4096 boxes, infer.py's
+# rows longer than the cells', for the card only: one 4-scale row at bucket
+# 576 (2304 boxes), a 4-scale bucket at 4096 boxes, infer.py's
 # 2100-position video (2304 padded, 4 scales) and a row past the kernel's
 # shared-memory tile
 LONG_CASES = {
+    "attention-2304": lambda: predicted(15, [576], ATTENTION, 576),
     "attention-4096-b4": lambda: predicted(12, [1024, 1000, 900, 800],
                                            ATTENTION, 1024),
     "infer-9216": lambda: predicted(13, [2100], ATTENTION, 2304),

@@ -84,8 +84,8 @@ def test_wrapper_counts_no_launch_on_cpu():
 
 def test_build_takes_a_source_outside_csrc_by_its_path():
     """chip_smoke.py builds tools/flash_fwd_yardsticks.cu, which includes
-    csrc/flash_attention_fwd.cu: named by its path, keyed by csrc's
-    sources too, built beside the port's libraries."""
+    csrc/tf32_mma.cuh: named by its path, keyed like the port's sources,
+    built beside the port's libraries."""
     from edsnet_torch.kernels import build
     tool = build.PKG.parent / "tools" / "flash_fwd_yardsticks.cu"
     assert build._source("flash_attention_fwd") == (
@@ -95,4 +95,4 @@ def test_build_takes_a_source_outside_csrc_by_its_path():
     assert lib.parent == build.BUILD_DIR
     assert lib.name.startswith("libflash_fwd_yardsticks-")
     assert lib != build._lib_path("flash_attention_fwd")
-    assert '#include "flash_attention_fwd.cu"' in tool.read_text()
+    assert '#include "tf32_mma.cuh"' in tool.read_text()

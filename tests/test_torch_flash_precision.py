@@ -8,11 +8,12 @@ operand rounded to TF32 (to nearest, ties away from zero), then 3 products
 (precision "highest") or 1 ("default").  They sum those products as an
 f32 matmul does, rounded to nearest, unless ``toward_zero`` asks for the
 card's accumulation (8 terms a step, rounded toward zero after each).
-- 1 pass: operand rounding sets the error, and the emulation gives the
-  card's readings on ``chip_smoke.py``'s inputs to about three digits
-  (PERF.md); it is held here, at those shapes and at 4 heads, N 256,
-  D 128 from seeded numpy, to the 2^-8 (gradients: 2^-8 * max(1,
-  max|want|)) that the card holds "default" to against the twins;
+- 1 pass: operand rounding sets the error.  On ``SMOKE_SHAPES`` the
+  emulation gave the card's readings to about three digits in the smoke
+  runs that printed both, as recorded in PERF.md; it is held here, at
+  those shapes and at 4 heads, N 256, D 128 from seeded numpy, to the
+  2^-8 (gradients: 2^-8 * max(1, max|want|)) that the card holds
+  "default" to against the twins;
 - 3 passes: products within 1e-6 of f64; on the card the accumulator's
   rounding toward zero, not the split, sets the error of long sums, which
   ``toward_zero`` shows against the 1e-4 that the card holds "highest" to.
@@ -134,6 +135,9 @@ def test_emulated_dq_within_card_tolerance(passes, tol):
     assert not bool(got[2].any()) and not bool(want[2].any())
 
 
+# small shapes that the cuda tests (tests/flash_cases.py) also cover; the
+# name, which the test ids carry, dates from when chip_smoke.py checked
+# the kernels at these shapes and printed their emulation beside them
 SMOKE_SHAPES = [(4, 192, 64, [150, 150, 100, 100]), (2, 128, 128, [100, 100]),
                 (2, 256, 128, [0, 256]), (4, 128, 32, [128, 100, 64, 0])]
 
@@ -162,8 +166,8 @@ def test_emulated_dq_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
 @pytest.mark.parametrize("bh,n,d,lens", SMOKE_SHAPES)
 def test_emulated_one_pass_on_smoke_shapes_within_card_tolerance(bh, n, d,
                                                                  lens):
-    """chip_smoke.py's small cases at "default": short rows (100-150 real
-    keys) concentrate P, which gives one pass its largest dk error there
+    """``SMOKE_SHAPES`` at "default": short rows (100-150 real keys)
+    concentrate P, which gives one pass its largest dk error there
     (PERF.md), still inside 2^-8 * max(1, max|want|)."""
     q, k, v, g, mask = _smoke_inputs(bh, n, d, lens)
     out, m, l = flash.flash_attention_plain(q, k, v, mask)

@@ -1,6 +1,6 @@
 """How far the JAX package's float32 headline forward sits from float64, on
 the CPU: the reference point for the port's float64 check on the card
-(``chip_smoke.py`` phase 8).
+(``chip_smoke.py``'s phase "headline path at full width").
 
     JAX_PLATFORMS=cpu python tools/jax_f64_gap.py [--seed 0]
 
