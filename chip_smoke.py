@@ -971,7 +971,11 @@ def f64_errors(model, args, prepared, keep_from_card: bool = False):
         try:
             with torch.inference_mode():
                 if keep_from_card:
+                    # an eager forward: predict may replay a CUDA graph
+                    # (models/graphed.py), which calls no Python
                     gcn.top_similarity_keep = record
+                    model(*model_inputs(tb))
+                    gcn.top_similarity_keep = real_keep
                 got_cls, got_boxes = model.predict(*model_inputs(tb))
                 if keep_from_card:
                     gcn.top_similarity_keep = replay

@@ -22,6 +22,7 @@ from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import (Dropout, FcBlock, LayerNorm, Linear,
                                         apply_mask, promote)
 from edsnet_torch.models.encoder import ClassicEncoder, LocalGlobalEncoder
+from edsnet_torch.models.graphed import eval_forward
 from edsnet_torch.models.mha import DenseGeneral, MultiHeadDotProductAttention
 from edsnet_torch.models.poolings import Pooling, roi_multi_scale
 from edsnet_torch.ops.anchors import anchor_scales_list, get_anchors
@@ -115,11 +116,12 @@ class _AnchorBased(nn.Module):
 
     def predict(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward + anchor decode; needs eval mode."""
+        """Deterministic forward (``models/graphed.py:eval_forward``) +
+        anchor decode; needs eval mode."""
         if self.training:
             raise RuntimeError(f"{type(self).__name__}.predict is the "
                                f"deterministic pass: call model.eval() first")
-        pred_cls, pred_loc = self(x, mask)
+        pred_cls, pred_loc = eval_forward(self, x, mask)
         return _decode_predictions(pred_cls, pred_loc, self.scales)
 
 

@@ -27,6 +27,7 @@ from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import Dropout, LayerNorm, Linear
 from edsnet_torch.models.dsnet import _FcTrunk
 from edsnet_torch.models.encoder import LocalGlobalEncoder
+from edsnet_torch.models.graphed import eval_forward
 from edsnet_torch.ops.anchor_free import offset2bbox
 from edsnet_torch.utils.profiling import count, count_nonzero, enabled, span
 
@@ -80,11 +81,12 @@ class _AnchorFree(nn.Module):
 
     def predict(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward + box decode; needs eval mode."""
+        """Deterministic forward (``models/graphed.py:eval_forward``) +
+        box decode; needs eval mode."""
         if self.training:
             raise RuntimeError(f"{type(self).__name__}.predict is the "
                                f"deterministic pass: call model.eval() first")
-        outputs = self(x, mask)
+        outputs = eval_forward(self, x, mask)
         with span("af/decode"):
             scores, boxes = _af_predict(*outputs, mask)
         if enabled():

@@ -29,7 +29,6 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,14 +38,15 @@ from edsnet_torch.models.common import promote
 def fft_weight_fold(w_flat: torch.Tensor, scale: int) -> torch.Tensor:
     """The window FFT folded into the fc weights: W~_j = sum_k
     cos(2 pi k j / s) W_k, the cosine table in the weight's dtype, as JAX
-    casts it.  [s*H, O] -> [s, H, O]."""
+    casts it.  [s*H, O] -> [s, H, O].  The table is made in float64 on the
+    weight's device, with no copy from the host: a forward may be captured
+    into a CUDA graph (models/graphed.py), where a pageable copy is
+    refused."""
     sh, o = w_flat.shape
     w = w_flat.reshape(scale, sh // scale, o)
-    k = np.arange(scale)[:, None]
-    j = np.arange(scale)[None, :]
-    cos = torch.as_tensor(np.cos(2 * np.pi * k * j / scale), dtype=w.dtype,
-                          device=w.device)
-    return torch.einsum("kj,kho->jho", cos, w)
+    k = torch.arange(scale, dtype=torch.float64, device=w.device)
+    cos = torch.cos(2 * math.pi * k[:, None] * k[None, :] / scale)
+    return torch.einsum("kj,kho->jho", cos.to(w.dtype), w)
 
 
 def dwt_weight_fold(w_flat: torch.Tensor, scale: int) -> torch.Tensor:
