@@ -5,6 +5,12 @@ contiguous segment of each video).
 Counterpart of edsnet_tpu/models/encoder.py:ClassicEncoder, MultiAttention
 and LocalGlobalEncoder.  Submodule names follow the flax param tree so the
 weight bridge (convert.py) maps names one to one.
+
+The tracer (utils/profiling.py) sees ``MultiAttention.forward`` as the
+span ``lg/encoder`` and its segment loop as ``lg/local``, with the
+counters ``MultiAttention`` describes, in every head built on it: the
+anchor-based and anchor-free local-global heads and the motion head's
+local-global encoder.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from torch import nn
 
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import LayerNorm, Linear, l2_normalize
+from edsnet_torch.utils.profiling import count, count_nonzero, enabled, span
 
 
 class ClassicEncoder(nn.Module):
@@ -32,6 +39,16 @@ class ClassicEncoder(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         return self.fc1(x + self.base_model(x, mask))
+
+
+def _true_lengths(x: torch.Tensor, mask: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """Each video's length [B] int64: its mask's count, or N without a
+    mask."""
+    if mask is None:
+        return torch.full((x.shape[0],), x.shape[1], dtype=torch.int64,
+                          device=x.device)
+    return mask.to(torch.int64).sum(dim=-1)
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,7 +69,14 @@ class MultiAttention(nn.Module):
     ``local_attention_{s}``, and scattered back, so every backbone sees
     the slice the reference gives it.  A buffer with no real position (an
     all-padding row, or a segment past a short video's end) has every key
-    masked; its output is finite and never scattered back."""
+    masked; its output is finite and never scattered back.
+
+    With the tracer on, a forward adds B x ``num_segments`` to
+    ``lg.segments``, B x ``num_segments`` x the buffer's length to
+    ``lg.slots``, and the device count of the real positions in the
+    buffers to ``lg.valid``: none while a stream is capturing a CUDA
+    graph (``models/graphed.py``), whose replays run no Python, so the
+    three count the same forwards."""
 
     def __init__(self, num_feature: int, base_model: str,
                  orientation: str = "paper", num_segments: int = 5,
@@ -72,34 +96,45 @@ class MultiAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        with span("lg/encoder"):
+            return self._forward(x, mask)
+
+    def _forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
         weighted = torch.relu(self.fc(self.global_attention(x, mask)))
         b, n, _ = x.shape
         n_seg = self.num_segments
-        if mask is None:
-            lengths = torch.full((b,), n, dtype=torch.int64, device=x.device)
-        else:
-            lengths = mask.to(torch.int64).sum(dim=-1)
+        lengths = _true_lengths(x, mask)
         seg_size = -torch.div(-lengths, n_seg, rounding_mode="floor")
         buf = -(-n // n_seg)                  # the buffer, the same for all
+        counting = enabled() and not (
+            x.is_cuda and torch.cuda.is_current_stream_capturing())
+        if counting:
+            count("lg.segments", b * n_seg)
+            count("lg.slots", b * n_seg * buf)
         t = torch.arange(buf, device=x.device)
         pos = torch.arange(n, device=x.device)
         normed = l2_normalize(weighted)
         out = weighted
-        for seg in range(n_seg):
-            start = seg * seg_size                                   # [B]
-            end = torch.minimum((seg + 1) * seg_size, lengths)
-            idx = start[:, None] + t[None, :]                        # [B, buf]
-            seg_valid = idx < end[:, None]
-            seg_x = _take_rows(x, torch.clamp(idx, 0, n - 1))
-            seg_x = seg_x * seg_valid[..., None].to(x.dtype)
-            local = getattr(self, f"local_attention_{seg}")(seg_x, seg_valid)
-            local_w = torch.relu(self.fc(local))
-            # scatter back: position j of the video is slot j - start
-            rel = pos[None, :] - start[:, None]                      # [B, n]
-            in_seg = (rel >= 0) & (pos[None, :] < end[:, None])
-            back = _take_rows(local_w, torch.clamp(rel, 0, buf - 1))
-            out = torch.where(in_seg[..., None], normed + l2_normalize(back),
-                              out)
+        with span("lg/local"):
+            for seg in range(n_seg):
+                start = seg * seg_size                               # [B]
+                end = torch.minimum((seg + 1) * seg_size, lengths)
+                idx = start[:, None] + t[None, :]                    # [B, buf]
+                seg_valid = idx < end[:, None]
+                if counting:
+                    count_nonzero("lg.valid", seg_valid)
+                seg_x = _take_rows(x, torch.clamp(idx, 0, n - 1))
+                seg_x = seg_x * seg_valid[..., None].to(x.dtype)
+                local = getattr(self, f"local_attention_{seg}")(seg_x,
+                                                                seg_valid)
+                local_w = torch.relu(self.fc(local))
+                # scatter back: position j of the video is slot j - start
+                rel = pos[None, :] - start[:, None]                  # [B, n]
+                in_seg = (rel >= 0) & (pos[None, :] < end[:, None])
+                back = _take_rows(local_w, torch.clamp(rel, 0, buf - 1))
+                out = torch.where(in_seg[..., None],
+                                  normed + l2_normalize(back), out)
         return out
 
 
