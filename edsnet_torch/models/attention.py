@@ -41,10 +41,18 @@ Two routes of the parallel slice come before that rule:
   its heads of the whole draw; under ``emulate_tp`` the module runs every
   rank's heads itself and sums their partials.
 Each rank's heads go through ``attend``, whatever the route.
+
+``attend`` looks ``flash_attention`` up on its module at each call, so a
+wrapper put there sees every call.  While ``models/graphed.py`` captures a
+forward in pieces, it hands the call to the capture instead
+(``flash_steps``): a graph cannot hold the wrapper's Python, which then
+runs eagerly between the pieces' replays.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from contextvars import ContextVar
+from typing import Callable, Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +67,21 @@ from edsnet_torch.models.common import (Dropout, Linear, masked_softmax,
 # from TPU timings and would leave it off for every eval bucket of a real
 # video.  A later PR sets this from the card's times in PERF.md.
 FLASH_MIN_LEN = 0
+
+# (q, k, v, mask, precision) -> the flash output, set by ``flash_steps``
+_flash_step: ContextVar[Optional[Callable]] = ContextVar("flash_step",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def flash_steps(step: Callable) -> Iterator[None]:
+    """Inside the block every flash-route pass of ``attend`` calls
+    ``step(q, k, v, mask, precision)`` in place of ``flash_attention``."""
+    token = _flash_step.set(step)
+    try:
+        yield
+    finally:
+        _flash_step.reset(token)
 
 
 def flash_route(on_cuda: bool, training: bool, n: int, head_dim: int,
@@ -152,8 +175,13 @@ class AttentionExtractor(nn.Module):
                 axis_name=seq_ax, batch_axis=b_ax, head_axis=h_ax
             ).to(x.dtype)
         elif precision is not None:
-            from edsnet_torch.kernels.flash_attention import flash_attention
-            y = flash_attention(q, k, v, mask, precision=precision)
+            step = _flash_step.get()
+            if step is not None:
+                y = step(q, k, v, mask, precision)
+            else:
+                from edsnet_torch.kernels.flash_attention import (
+                    flash_attention)
+                y = flash_attention(q, k, v, mask, precision=precision)
         else:
             attn = torch.einsum("bhnd,bhmd->bhnm", q, k) / (d_k ** 0.5)
             key_mask = None if mask is None else mask[:, None, None, :]

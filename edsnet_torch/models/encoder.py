@@ -21,7 +21,7 @@ from torch import nn
 
 from edsnet_torch.models.base import build_base_model
 from edsnet_torch.models.common import LayerNorm, Linear, l2_normalize
-from edsnet_torch.utils.profiling import count, count_nonzero, enabled, span
+from edsnet_torch.utils.profiling import count, count_nonzero, span
 
 
 class ClassicEncoder(nn.Module):
@@ -74,9 +74,11 @@ class MultiAttention(nn.Module):
     With the tracer on, a forward adds B x ``num_segments`` to
     ``lg.segments``, B x ``num_segments`` x the buffer's length to
     ``lg.slots``, and the device count of the real positions in the
-    buffers to ``lg.valid``: none while a stream is capturing a CUDA
-    graph (``models/graphed.py``), whose replays run no Python, so the
-    three count the same forwards."""
+    buffers to ``lg.valid``.  A forward replayed from CUDA graphs
+    (``models/graphed.py``) runs no Python here: its capture notes the
+    three counts, tracer on or off, and each replay adds them (the last
+    a count over the buffers' masks the replay recomputed), so the three
+    count every forward, replayed or not."""
 
     def __init__(self, num_feature: int, base_model: str,
                  orientation: str = "paper", num_segments: int = 5,
@@ -107,11 +109,8 @@ class MultiAttention(nn.Module):
         lengths = _true_lengths(x, mask)
         seg_size = -torch.div(-lengths, n_seg, rounding_mode="floor")
         buf = -(-n // n_seg)                  # the buffer, the same for all
-        counting = enabled() and not (
-            x.is_cuda and torch.cuda.is_current_stream_capturing())
-        if counting:
-            count("lg.segments", b * n_seg)
-            count("lg.slots", b * n_seg * buf)
+        count("lg.segments", b * n_seg)
+        count("lg.slots", b * n_seg * buf)
         t = torch.arange(buf, device=x.device)
         pos = torch.arange(n, device=x.device)
         normed = l2_normalize(weighted)
@@ -122,8 +121,7 @@ class MultiAttention(nn.Module):
                 end = torch.minimum((seg + 1) * seg_size, lengths)
                 idx = start[:, None] + t[None, :]                    # [B, buf]
                 seg_valid = idx < end[:, None]
-                if counting:
-                    count_nonzero("lg.valid", seg_valid)
+                count_nonzero("lg.valid", seg_valid)
                 seg_x = _take_rows(x, torch.clamp(idx, 0, n - 1))
                 seg_x = seg_x * seg_valid[..., None].to(x.dtype)
                 local = getattr(self, f"local_attention_{seg}")(seg_x,

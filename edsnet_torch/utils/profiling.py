@@ -4,8 +4,8 @@
 The tracer is off unless an API call (``enable``) or ``--profile`` turns
 it on; importing this module or setting an environment variable never
 does.  Off, ``span`` returns one shared null context and ``count`` /
-``count_nonzero`` return at once: a call site costs one flag test, with
-nothing allocated, launched or synchronised.  No call site sits inside a
+``count_nonzero`` return at once: a call site costs a context-variable
+read and a flag test, with nothing allocated, launched or synchronised.  No call site sits inside a
 per-box or per-item loop; a loop's counts are added once per call.
 
 On, a span records its name, its parent (the innermost open span), its
@@ -23,6 +23,14 @@ events are resolved when the tracer is read (``snapshot``), or, past
 ``PENDING`` unread pairs, those the device has already passed
 (``Event.query``, which does not wait).  On the CPU a fenced span's
 device time is its host time.
+
+While ``models/graphed.py`` captures a forward into CUDA graphs, the
+tracer records instead of measuring (``recording``, a context variable
+set in the same ``with`` as ``models/attention.py:flash_steps``), on or
+off: a span inside the forward only notes its name and fence while it is
+open, and a counter notes its name and its int or tensor.  The capture
+is no forward, so nothing is counted then; each replay opens the noted
+spans around its pieces and adds the noted counts after them.
 
 Per-name aggregates (count, total, self and fenced time) are always kept;
 raw records up to ``CAP``, with a count of those dropped.  A counter adds
@@ -44,6 +52,7 @@ import contextlib
 import logging
 import os
 import time
+from contextvars import ContextVar
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -55,6 +64,9 @@ CAP = 100_000       # raw records kept
 PENDING = 4096      # unread event pairs before the passed ones are read
 
 _on = False         # the flag every call site tests
+# the capture's record, set by ``recording``
+_recording: ContextVar[Optional["Recording"]] = ContextVar("recording",
+                                                          default=None)
 _NULL = contextlib.nullcontext()
 
 
@@ -245,6 +257,35 @@ class Tracer:
             "dropped": self.dropped}
 
 
+class Recording:
+    """What a capture noted of the tracer's calls inside it: ``open``, the
+    (name, fence device) of each span open now, outermost first, and
+    ``counts``, each counter's (name, int or tensor) in call order."""
+
+    def __init__(self):
+        self.open: List[Tuple[str, Optional[torch.device]]] = []
+        self.counts: List[Tuple[str, object]] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str, fence):
+        self.open.append((name, _fence_device(fence)))
+        try:
+            yield
+        finally:
+            self.open.pop()
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block the tracer's calls are noted in the ``Recording``
+    it yields, and nothing is measured or counted."""
+    token = _recording.set(Recording())
+    try:
+        yield _recording.get()
+    finally:
+        _recording.reset(token)
+
+
 TRACER = Tracer()
 enable = TRACER.enable
 disable = TRACER.disable
@@ -259,6 +300,9 @@ def enabled() -> bool:
 def span(name: str, fence=False):
     """A span named ``name`` around a block (``with span(...)``); fenced
     on the device ``fence`` names (module docstring)."""
+    rec = _recording.get()
+    if rec is not None:
+        return rec.span(name, fence)
     if not _on:
         return _NULL
     return _Span(TRACER, name, fence)
@@ -266,14 +310,20 @@ def span(name: str, fence=False):
 
 def count(name: str, n: int) -> None:
     """Add the host int ``n`` to the counter ``name``."""
-    if _on:
+    rec = _recording.get()
+    if rec is not None:
+        rec.counts.append((name, int(n)))
+    elif _on:
         TRACER.count(name, n)
 
 
 def count_nonzero(name: str, t: torch.Tensor) -> None:
     """Add the number of nonzero entries of ``t`` to the counter ``name``,
     on ``t``'s device."""
-    if _on:
+    rec = _recording.get()
+    if rec is not None:
+        rec.counts.append((name, t))
+    elif _on:
         TRACER.count_nonzero(name, t)
 
 

@@ -4,27 +4,37 @@
 On the CPU: the rule that decides which forwards are graphed (from the
 model and the length alone), and ``predict`` left eager there, returning
 the eager forward's decode, with the tracer counting its calls and no
-replay.  On a card (``cuda`` marker; every case skips without one):
-graphed ``predict`` against the eager forward and decode at each eval
-bucket and at batch 4, for the headline model (F 1024, the Nystromformer
-mixer of 8 heads of 64, 64 landmarks, anchor scale 12) and for every
-backbone and depth the CLIs build; an in-place weight change read by the
-next replay; results that do not alias the graph's buffers; a capture on a
-key's second call only; graphs that go with their model; the flash route
-left eager, its kernel still launched and counted.
+replay; and, with stand-ins for the CUDA graph calls (the work captured
+runs once, at capture), a capture split at each flash call into pieces,
+the spans and counters it notes, and a replay that calls the module's
+``flash_attention`` with a mask of its own, opens the noted spans and
+adds the noted counts.  On a card (``cuda`` marker; every case skips
+without one): graphed ``predict`` against the eager forward and decode at
+each eval bucket and at batch 4, for the headline model (F 1024, the
+Nystromformer mixer of 8 heads of 64, 64 landmarks, anchor scale 12) and
+for every backbone and depth the CLIs build; an in-place weight change
+read by the next replay; results that do not alias the graph's buffers; a
+capture on a key's second call only; graphs that go with their model; the
+flash route replayed in pieces, bit-equal, its kernel launched and
+counted once a call and replay, the local-global head's counters and
+spans in every replayed forward, and each recorded flash call keeping its
+own video's mask.
 
 Imports neither JAX nor edsnet_tpu, so the card's cases also run where
 only the port is installed:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_predict_graph.py
 """
+import contextlib
 import gc
+import types
 import weakref
 
 import pytest
 import torch
 
 from edsnet_torch.kernels import flash_attention as flash
+from edsnet_torch.models import graphed
 from edsnet_torch.models.dsnet import _decode_predictions
 from edsnet_torch.models.dsnet_af import _af_predict
 from edsnet_torch.models.graphed import graphable
@@ -85,11 +95,11 @@ def _counters():
     ("nystromformer, cpu", {}, False, False),
     ("nystromformer, anchor-free", {"model_type": "anchor-free"}, True,
      True),
-    ("attention, flash route", {"base_model": "attention"}, True, False),
+    ("attention, flash route", {"base_model": "attention"}, True, True),
     ("attention, anchor-free flash route",
-     {"base_model": "attention", "model_type": "anchor-free"}, True, False),
+     {"base_model": "attention", "model_type": "anchor-free"}, True, True),
     ("attention, --use-pallas", {"base_model": "attention",
-                                 "use_pallas": True}, True, False),
+                                 "use_pallas": True}, True, True),
     ("attention, --no-pallas", {"base_model": "attention",
                                 "use_pallas": False}, True, True),
     ("attention, head dim 16 off the kernel",
@@ -131,6 +141,148 @@ def test_predict_on_cpu_is_the_eager_decode(tracer, model_type, base_model):
     assert counters.get("predict.graph_replays", 0) == 0
     assert counters.get("predict.graph_captures", 0) == 0
     assert "_eval_graphs" not in model.__dict__
+
+
+# --- a capture in pieces, with stand-ins for the CUDA graph calls -------
+
+class _FakeGraph:
+    """``torch.cuda.CUDAGraph`` on the CPU: what it captured ran once, at
+    capture; a replay is counted."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+class _FakeCapture:
+    """``torch.cuda.graph`` on the CPU, logging each piece's capture."""
+    capture_stream = types.SimpleNamespace(wait_stream=lambda stream: None)
+    log = None
+
+    def __init__(self, graph, pool=None):
+        self.graph = graph
+
+    def __enter__(self):
+        self.log.append("begin")
+
+    def __exit__(self, *exc):
+        self.log.append("end")
+
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """The CUDA graph calls ``models/graphed.py`` makes, as stand-ins; the
+    capture log."""
+    log = []
+    monkeypatch.setattr(_FakeCapture, "log", log)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _FakeCapture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: None)
+    return log
+
+
+def _flash_model(model_depth):
+    """The attention head on the flash route on the CPU (--use-pallas: the
+    kernel's twin), at test widths."""
+    return _model(base_model="attention", num_feature=64, num_head=2,
+                  use_pallas=True, model_depth=model_depth)
+
+
+LG, LOCAL = ("lg/encoder",), ("lg/encoder", "lg/local")
+# depth -> the open spans where each piece ends, the counters noted
+PIECES = {
+    "shallow": ([(), ()], []),
+    "local-global-attention": (
+        [LG, LOCAL, LOCAL, LOCAL, LOCAL, ()],
+        ["lg.segments", "lg.slots"] + ["lg.valid"] * 4),
+}
+
+
+@pytest.mark.parametrize("model_depth", sorted(PIECES))
+def test_capture_splits_at_each_flash_call(fake_graphs, tracer,
+                                           monkeypatch, model_depth):
+    model = _flash_model(model_depth)
+    x, mask = _inputs([41, 3], 64, 64)
+    spans, counts = PIECES[model_depth]
+    called = []
+    monkeypatch.setattr(flash, "flash_attention",
+                        lambda *args, **kwargs: called.append(args))
+    with torch.inference_mode():
+        g = graphed._Graph(model, x, mask)
+    assert called == []         # neither the warm-up nor the capture
+    assert len(g.pieces) == len(spans) == len(g.steps) + 1
+    assert fake_graphs == ["begin", "end"] * len(spans)
+    assert [[name for name, _ in piece] for piece in g.spans] \
+        == [list(names) for names in spans]
+    assert [step.precision for step in g.steps] == ["default"] * len(g.steps)
+    assert all(step.out.dtype == torch.float32
+               and step.out.shape == step.q.shape for step in g.steps)
+    assert [name for name, _ in g.counts] == counts
+    # the warm-up and the capture are no forward: nothing traced
+    snap = profiling.snapshot()
+    assert snap["counters"] == {} and snap["spans"] == {}
+
+
+@pytest.mark.parametrize("model_depth", sorted(PIECES))
+def test_replay_calls_the_module_wrapper_with_masks_of_its_own(
+        fake_graphs, monkeypatch, model_depth):
+    model = _flash_model(model_depth)
+    x, mask = _inputs([41, 3], 64, 64)
+    with torch.inference_mode():
+        g = graphed._Graph(model, x, mask)
+        calls = []
+        original = flash.flash_attention
+
+        def recorded(*args, **kwargs):
+            calls.append((args, kwargs))
+            return original(*args, **kwargs)
+
+        monkeypatch.setattr(flash, "flash_attention", recorded)
+        g.replay(x, mask)
+    assert [piece.replays for piece in g.pieces] == [1] * len(g.pieces)
+    assert len(calls) == len(g.steps)
+    for (args, kwargs), step in zip(calls, g.steps):
+        assert args[:3] == (step.q, step.k, step.v)
+        assert args[3] is not step.mask and torch.equal(args[3], step.mask)
+        assert kwargs == {"precision": "default"}
+        assert torch.equal(step.out, original(*args, **kwargs))
+
+
+def test_replay_adds_the_noted_counts_and_opens_the_noted_spans(
+        fake_graphs, tracer, monkeypatch):
+    """Through ``predict``, with every forward graphable: a capture
+    traced or not counts one forward a call, as eager forwards do, and
+    each replay opens ``lg/encoder`` and ``lg/local`` once.  (The stand-in
+    pieces run nothing at a replay, so only the eager call's result is
+    the forward's.)"""
+    monkeypatch.setattr(graphed, "graphable", lambda *args: True)
+    model = _flash_model("local-global-attention")
+    x, mask = _inputs([41, 3], 64, 64)
+    with torch.inference_mode():
+        want = _eager(model, x, mask)
+        eager = _counters()
+        profiling.reset()
+        runs = _predict_thrice(model, x, mask)
+    _assert_same(runs[0], want)
+    c = _counters()
+    assert (c["predict.calls"], c["predict.graph_captures"],
+            c["predict.graph_replays"], c["predict.graph_pieces"]) \
+        == (3, 1, 2, 12)
+    for name in ("lg.segments", "lg.slots", "lg.valid"):
+        assert c[name] == 3 * eager[name], name
+    snap = profiling.snapshot()
+    assert snap["spans"]["lg/encoder"]["count"] == 3
+    assert snap["spans"]["lg/local"]["count"] == 3
+    parents = {r["id"]: r["name"] for r in snap["records"]}
+    for r in snap["records"]:
+        if r["name"] == "lg/local":
+            assert parents[r["parent_id"]] == "lg/encoder"
 
 
 # --- on a card -------------------------------------------------------------
@@ -199,8 +351,8 @@ def test_every_graphable_head_replays_its_eager_forward(
         cuda_device, tracer, model_type, model_depth, base_model):
     """Each backbone, depth and pooling (``shallow/<pooling>``, at the
     single scale) the CLIs build, at bucket 256 and batch 2; attention
-    under --no-pallas (the dense route) where the flash route would keep
-    it eager."""
+    under --no-pallas (the dense route; the flash route's pieces have
+    tests of their own below)."""
     depth, _, pooling = model_depth.partition("/")
     model = _model(model_type, base_model, model_depth=depth,
                    use_pallas=False, pooling_type=pooling or "roi",
@@ -310,19 +462,123 @@ def test_new_parameter_addresses_drop_the_graphs(cuda_device, tracer):
     assert _counters()["predict.graph_captures"] == 2
 
 
+def _launches_by_head_dim():
+    return dict(flash.flash_attention_fwd.launches_by_head_dim)
+
+
+def _launched_since(before):
+    after = _launches_by_head_dim()
+    return {d: n - before.get(d, 0) for d, n in after.items()
+            if n != before.get(d, 0)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("model_type", ["anchor-based", "anchor-free"])
-def test_flash_route_stays_eager(cuda_device, tracer, model_type):
-    model = _model(model_type, "attention").to(cuda_device)
+@pytest.mark.parametrize("model_type,model_depth,launches,pieces", [
+    ("anchor-based", "shallow", {128: 1}, 2),
+    ("anchor-free", "shallow", {128: 1}, 2),
+    ("anchor-based", "local-global-attention", {128: 1, 512: 4}, 6)])
+def test_flash_route_replays_in_pieces(cuda_device, tracer, model_type,
+                                       model_depth, launches, pieces):
+    model = _model(model_type, "attention",
+                   model_depth=model_depth).to(cuda_device)
     x, mask = _inputs([300], 512, 1024, cuda_device)
-    assert not graphable(model, True, 512)
-    before = flash.flash_attention_fwd.launches
-    runs = _predict_thrice(model, x, mask)
-    torch.cuda.synchronize()
-    assert flash.flash_attention_fwd.launches == before + 3
-    for got in runs[1:]:
-        _assert_same(got, runs[0])
+    assert graphable(model, True, 512)
+    with torch.inference_mode():
+        want = _eager(model, x, mask)
+        before = _launches_by_head_dim()
+        runs = _predict_thrice(model, x, mask)
+        torch.cuda.synchronize()
+        # once a call: eager, the capture's replay (its warm-up launches
+        # none), a replay
+        assert _launched_since(before) == {d: 3 * n
+                                           for d, n in launches.items()}
+        for _ in range(2):
+            before = _launches_by_head_dim()
+            runs.append(model.predict(x, mask))
+            torch.cuda.synchronize()
+            assert _launched_since(before) == launches
+    for got in runs:
+        _assert_same(got, want)
     c = _counters()
-    assert c["predict.calls"] == 3
-    assert c.get("predict.graph_replays", 0) == 0
-    assert "_eval_graphs" not in model.__dict__
+    assert (c["predict.calls"], c["predict.graph_captures"],
+            c["predict.graph_replays"]) == (5, 1, 4)
+    assert c["predict.graph_pieces"] == pieces * c["predict.graph_replays"]
+
+
+def _local_global(device):
+    return _model("anchor-based", "attention",
+                  model_depth="local-global-attention").to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens,bucket", [
+    ([241], 256), ([1200], 1216), ([241, 2], 256), ([5], 64)])
+def test_local_global_replay_counts_and_spans_every_forward(
+        cuda_device, tracer, lens, bucket):
+    """Lengths whose last segment is short (241: 61 / 61 / 61 / 58) or
+    empty (5: 2 / 2 / 1 / 0; 2: 1 / 1 / 0 / 0), buckets of 64; the graph
+    captured with the tracer off, then the tracer on."""
+    model = _local_global(cuda_device)
+    x, mask = _inputs(lens, bucket, 1024, cuda_device)
+    profiling.disable()
+    with torch.inference_mode():
+        model.predict(x, mask)
+        model.predict(x, mask)                  # captured, tracer off
+        profiling.enable()
+        want = _eager(model, x, mask)
+        eager = _counters()
+        profiling.reset()
+        runs = [model.predict(x, mask) for _ in range(2)]
+    for got in runs:
+        _assert_same(got, want)
+    c = _counters()
+    assert c["predict.graph_replays"] == 2
+    assert c["predict.graph_pieces"] == 12
+    for name in ("lg.segments", "lg.slots", "lg.valid"):
+        assert c[name] == 2 * eager[name], name
+    assert eager["lg.valid"] == sum(lens)
+    snap = profiling.snapshot()
+    assert snap["spans"]["lg/encoder"]["count"] == 2
+    assert snap["spans"]["lg/local"]["count"] == 2
+    parents = {r["id"]: r["name"] for r in snap["records"]}
+    assert all(parents[r["parent_id"]] == "lg/encoder"
+               for r in snap["records"] if r["name"] == "lg/local")
+
+
+def _segment_lengths(n, segments=4):
+    size = -(-n // segments)
+    return [max(0, min((s + 1) * size, n) - s * size)
+            for s in range(segments)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_depth", ["shallow",
+                                         "local-global-attention"])
+def test_recorded_flash_calls_keep_their_own_masks(cuda_device,
+                                                   model_depth):
+    """The benchmark's view (``portbench/lib/hooks.py:recorded`` on the
+    module attribute): two videos of one bucket replayed in turn; after
+    the second, each call's mask still sums to its own video's lengths
+    (the length for the global attention, a segment's for a local one)."""
+    from portbench.lib import hooks
+
+    model = _model("anchor-based", "attention",
+                   model_depth=model_depth).to(cuda_device)
+    lens = [300, 170]
+    videos = [_inputs([n], 512, 1024, cuda_device, seed=i)
+              for i, n in enumerate(lens)]
+    calls = []
+    target = "edsnet_torch.kernels.flash_attention:flash_attention"
+    with torch.inference_mode():
+        model.predict(*videos[0])
+        model.predict(*videos[0])               # the key is captured
+        with hooks.patched({target: hooks.recorded(calls, lambda: True)}):
+            for x, mask in videos:
+                model.predict(x, mask)
+        torch.cuda.synchronize()
+    want = []
+    for n in lens:
+        want.append([n])
+        if model_depth != "shallow":
+            want += [[s] for s in _segment_lengths(n)]
+    assert [args[3].sum(-1).tolist() for args, _ in calls] == want

@@ -118,6 +118,35 @@ def test_raw_records_stop_at_the_cap(tracer, monkeypatch):
         [r["host_ms"] for r in snap["records"]])
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_recording_notes_spans_and_counters_and_measures_nothing(tracer,
+                                                                 on):
+    """What a CUDA graph's capture notes, tracer on or off: the open spans
+    with their fences, and each counter's int or tensor; nothing is
+    recorded or counted until the block ends."""
+    if not on:
+        tracer.disable()
+    valid = torch.tensor([0, 1, 2])
+    with tracer.recording() as rec:
+        with tracer.span("t/outer"):
+            with tracer.span("t/inner", fence=torch.device("cpu")):
+                assert rec.open == [("t/outer", None),
+                                    ("t/inner", torch.device("cpu"))]
+                tracer.count("t.n", 2)
+                tracer.count_nonzero("t.valid", valid)
+        assert rec.open == []
+    assert [name for name, _ in rec.counts] == ["t.n", "t.valid"]
+    assert rec.counts[0][1] == 2 and rec.counts[1][1] is valid
+    snap = tracer.snapshot()
+    assert (snap["spans"], snap["counters"], snap["records"]) == ({}, {},
+                                                                   [])
+    with tracer.span("t/outer"):
+        tracer.count("t.n", 1)
+    snap = tracer.snapshot()
+    assert snap["counters"] == ({"t.n": 1} if on else {})
+    assert ("t/outer" in snap["spans"]) is on
+
+
 def test_span_lies_in_its_profiler_event(tracer):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
